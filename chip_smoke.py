@@ -4,18 +4,36 @@ Run from the repository root on a machine with one NVIDIA H100::
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught):
+Phases (any failure exits non-zero; nothing is caught).  Every path is
+driven with every launch counter set to 0 just before it and read just
+after; the flagship shape is block 128 and a 10 s 48 kHz IR.
 
-1. build the hand-written kernels (nvcc, ``sm_90a``) and print the card;
-2. main path: ``CudaFFTConvolver`` (kernel B1) for 128 blocks and
+1. build the hand-written kernels (one nvcc per source, ``sm_90a``) and
+   print the card;
+2. ``CudaFFTConvolver`` (kernel B1) for 128 blocks and
    ``CudaTwoStageConvolver`` (kernel B2, big tail every 64 blocks) for 192
-   blocks at the flagship shape — block 128, a 10 s 48 kHz IR — with every
-   launch counter set to 0 before and read after;
+   blocks at the flagship shape;
 3. the same wrappers through the kernels' plain PyTorch versions on the card,
-   held to 1e-4 (max abs) against the kernel path, and the two-stage output
-   also against a float64 direct convolution;
+   held to 1e-4 (max abs) against the kernel path and against a float64
+   direct convolution;
 4. both wrappers over the recorded golden (``tests/golden``), held to 1e-5;
-5. per-block latency, kernel path against plain path (recorded, not gated).
+5. per-block latency of B1 and B2, kernel path against plain path
+   (recorded, not gated);
+6. ``CudaCrossfadeConvolver`` (kernel B3) at the flagship shape for 192
+   blocks: an update at block 64 with a 4-block fade and a second update
+   mid-fade (the pending slot); against its plain path (1e-4), and against
+   float64 convolutions with the first IR before the update and with the
+   last IR once both fades have ended (1e-4);
+7. ``CudaStreamingConvolver`` (kernel B4) with a 30 s IR (11264 segments
+   after padding to the 512 chunk) in calls of 64 blocks until the ring has
+   wrapped: f32 table against its plain path and ``scipy.signal.fftconvolve``
+   in float64 (1e-4); bf16 table against its plain path (1e-4) and the f32
+   path (5e-3 of the output scale);
+8. ``CudaFFTConvolver(storage="bf16_packed")`` (kernel B1p) at the flagship
+   shape for 128 blocks, against its plain path (1e-4) and the f32 kernel
+   path (5e-3 of the output scale);
+9. latency of B3 and B1p per block and of B4 per 64-block call, kernel path
+   against plain path (recorded, not gated).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches, error and times.
@@ -41,6 +59,10 @@ N_UNIFORM, N_TWO_STAGE = 128, 192
 PARITY_TOL = 1e-4          # the JAX bench's on-chip kernel gate (bench.py:421-424)
 GOLDEN_TOL = 1e-5          # the reference's 1000-block stream tolerance
 TIMED_BLOCKS, WARMUP_BLOCKS = 512, 64
+PACKED_REL_TOL = 5e-3      # bf16 storage, of the output scale (bench.py:421-424)
+XFADE_BLOCKS, XFADE_UPDATE, XFADE_FADE = 192, 64, 4 * BLOCK
+STREAM_SECONDS, STREAM_CALL, STREAM_CALLS = 30, 64, 180  # 11520 blocks > 11264
+STREAM_TIMED, STREAM_WARMUP = 32, 4                      # calls
 
 
 def fail(msg: str) -> None:
@@ -63,16 +85,49 @@ def max_abs(a: torch.Tensor, b) -> float:
     return float((a.reshape(-1).double() - b.reshape(-1).double()).abs().max())
 
 
-def latency(conv, xs: torch.Tensor) -> dict:
-    """Per-block latency of ``conv.process`` on blocks already on the card.
+def rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Max abs difference over the max abs of ``b``."""
+    return max_abs(a, b) / float(b.abs().max())
+
+
+class Counts:
+    """Every kernel wrapper's launch counter, zeroed and read together."""
+
+    def __init__(self, **wrappers):
+        self.wrappers = wrappers
+
+    def zero(self) -> None:
+        for fn in self.wrappers.values():
+            fn.launches = 0
+
+    def read(self) -> dict:
+        return {k: fn.launches for k, fn in self.wrappers.items()}
+
+    def drive(self, label: str, run, expect: dict):
+        """Zero the counts, ``run()``, synchronise, read the counts; fail
+        unless exactly the kernels in ``expect`` launched that often."""
+        self.zero()
+        out = run()
+        torch.cuda.synchronize()
+        got = self.read()
+        print(f"{label} launches: {got}", flush=True)
+        want = {k: expect.get(k, 0) for k in got}
+        if got != want:
+            fail(f"{label}: launch counts {got} != {want}")
+        return out
+
+
+def latency(conv, xs: torch.Tensor, warmup: int = WARMUP_BLOCKS,
+            timed_n: int = TIMED_BLOCKS) -> dict:
+    """Per-call latency of ``conv.process`` on inputs already on the card.
     ``event_ms``: CUDA events around each call, no synchronisation in the
-    loop (device time from the block's start to its last kernel, host launch
+    loop (device time from the call's start to its last kernel, host launch
     gaps included).  ``sync_ms``: host clock around each call plus a
     synchronise (the real-time callback shape)."""
-    for xb in xs[:WARMUP_BLOCKS]:
+    for xb in xs[:warmup]:
         conv.process(xb)
     torch.cuda.synchronize()
-    timed = xs[WARMUP_BLOCKS:WARMUP_BLOCKS + TIMED_BLOCKS]
+    timed = xs[warmup:warmup + timed_n]
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in timed]
     for (start, end), xb in zip(events, timed):
@@ -96,15 +151,30 @@ def main() -> None:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         sys.exit(2)
+    import scipy.signal
+
     from fft_convolution_tpu_torch import _build
-    from fft_convolution_tpu_torch.ops import cuda_engine, cuda_two_stage
+    from fft_convolution_tpu_torch.ops import (cuda_crossfade, cuda_engine, cuda_stream,
+                                               cuda_two_stage)
     from fft_convolution_tpu_torch.ops.fft import generate_sinusoid
-    from fft_convolution_tpu_torch.serving import CudaFFTConvolver, CudaTwoStageConvolver
+    from fft_convolution_tpu_torch.serving import (CudaCrossfadeConvolver, CudaFFTConvolver,
+                                                   CudaStreamingConvolver,
+                                                   CudaTwoStageConvolver)
 
     # parity paths run in IEEE float32: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    counts = Counts(B1=cuda_engine.block_step, B1p=cuda_engine.block_step_packed,
+                    B2=cuda_two_stage.block_step, B3=cuda_crossfade.block_step,
+                    B4=cuda_stream.stream, B4p=cuda_stream.stream_packed)
+    t_run = t_phase = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"phase {name}: {now - t_phase:.2f} s", flush=True)
+        t_phase = now
 
     # ---- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -117,6 +187,7 @@ def main() -> None:
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    phase_done("1 build")
 
     # ---- inputs as the JAX bench makes them (bench.py:175-183) ----------
     rng = np.random.default_rng(0)
@@ -139,16 +210,12 @@ def main() -> None:
     uni_plain._step = cuda_engine.block_step_plain
     two_plain._step = cuda_two_stage.block_step_plain
 
-    cuda_engine.block_step.launches = 0
-    cuda_two_stage.block_step.launches = 0
-    y_uni = run_blocks(uni, xs[:N_UNIFORM])
-    y_two = run_blocks(two, xs[:N_TWO_STAGE])
-    torch.cuda.synchronize()
-    launches = {"B1": cuda_engine.block_step.launches,
-                "B2": cuda_two_stage.block_step.launches}
-    print(f"main path launches: {launches}", flush=True)
-    if launches != {"B1": N_UNIFORM, "B2": N_TWO_STAGE}:
-        fail(f"launch counts {launches} != blocks ({N_UNIFORM}, {N_TWO_STAGE})")
+    launches = {}
+    y_uni = counts.drive("B1 path", lambda: run_blocks(uni, xs[:N_UNIFORM]),
+                         {"B1": N_UNIFORM})
+    y_two = counts.drive("B2 path", lambda: run_blocks(two, xs[:N_TWO_STAGE]),
+                         {"B2": N_TWO_STAGE})
+    launches.update(B1=N_UNIFORM, B2=N_TWO_STAGE)
     # the big tail ran at rows 63, 127 and 191; its first output is summed
     # into y over blocks 128-191 (IR taps >= 16384), which the float64
     # check below covers
@@ -156,6 +223,7 @@ def main() -> None:
     print(f"big tail ran {big_tail_runs} times", flush=True)
     if big_tail_runs != N_TWO_STAGE // two.cfg.period:
         fail("big tail did not run once per period")
+    phase_done("2 B1/B2 paths")
 
     # ---- 3. kernel path vs plain path on the card -----------------------
     y_uni_plain = run_blocks(uni_plain, xs[:N_UNIFORM])
@@ -172,6 +240,7 @@ def main() -> None:
          PARITY_TOL)
     if not (torch.isfinite(y_two).all() and torch.isfinite(y_uni).all()):
         fail("non-finite output")
+    phase_done("3 B1/B2 parity")
 
     # ---- 4. recorded golden ---------------------------------------------
     golden = np.load(ROOT / "tests" / "golden" / "compare_partitioned.npz")["y"]
@@ -182,37 +251,164 @@ def main() -> None:
         conv = cls(g_ir, 64, len(g_ir), device=dev)
         gate(f"golden {name}", max_abs(run_blocks(conv, g_x.reshape(-1, 64)), golden),
              GOLDEN_TOL)
+    phase_done("4 golden")
 
     # ---- 5. latency, plain / kernel / kernel / plain ---------------------
     timing = {}
-    for label, kernel_conv, plain_conv in (("B1", uni, uni_plain), ("B2", two, two_plain)):
+
+    def compare(label, kernel_conv, plain_conv, inputs, unit="block", **kw):
         runs = [("plain", plain_conv), ("kernel", kernel_conv),
                 ("kernel", kernel_conv), ("plain", plain_conv)]
         res = {"kernel": [], "plain": []}
         for kind, conv in runs:
-            res[kind].append(latency(conv, xs))
+            res[kind].append(latency(conv, inputs, **kw))
         timing[label] = res
         for kind in ("kernel", "plain"):
             for r in res[kind]:
                 print(f"latency {label} {kind}: event median {r['event_ms']!r} ms, "
                       f"event max {r['event_max_ms']!r} ms, sync median "
-                      f"{r['sync_ms']!r} ms over {r['blocks']} blocks", flush=True)
+                      f"{r['sync_ms']!r} ms per {unit} over {r['blocks']} {unit}s",
+                      flush=True)
+
+    compare("B1", uni, uni_plain, xs)
+    compare("B2", two, two_plain, xs)
+    phase_done("5 B1/B2 latency")
+
+    # ---- 6. B3: crossfade morph at the flagship shape ---------------------
+    ir_b = (rng.standard_normal(IR_SECONDS * SR) * 0.01).astype(np.float32)
+    ir_c = (rng.standard_normal(IR_SECONDS * SR) * 0.01).astype(np.float32)
+    xf = CudaCrossfadeConvolver(ir, BLOCK, len(ir), crossfade_samples=XFADE_FADE,
+                                device=dev)
+    xf_plain = xf.clone()
+    xf_plain._step = cuda_crossfade.block_step_plain
+    print(f"crossfade: N={xf.cfg.seg_count}, hold {xf.cf_cfg.hold_samples}, "
+          f"fade {xf.cf_cfg.fading_samples} samples", flush=True)
+
+    def run_morph(conv):
+        """192 blocks; update(ir_b) at block 64, update(ir_c) two blocks into
+        that fade (pending).  Returns the output and the first block from
+        which both fades are over."""
+        ys, settled = [], None
+        for t in range(XFADE_BLOCKS):
+            if t == XFADE_UPDATE:
+                conv.update(ir_b)
+            if t == XFADE_UPDATE + 2:
+                conv.update(ir_c)
+                if not conv.response_pending:
+                    fail("second update did not park in the pending slot")
+            ys.append(conv.process(xs[t]))
+            busy = conv.is_crossfading() or conv.response_pending
+            if t > XFADE_UPDATE + 2 and not busy and settled is None:
+                settled = t + 1
+        return torch.stack(ys), settled
+
+    y_xf, settled = counts.drive("B3 path", lambda: run_morph(xf), {"B3": XFADE_BLOCKS})
+    launches["B3"] = XFADE_BLOCKS
+    y_xf_plain, settled_plain = run_morph(xf_plain)
+    b3_err = max_abs(y_xf, y_xf_plain)
+    gate("B3 kernel vs plain (CudaCrossfadeConvolver, 192 blocks)", b3_err, PARITY_TOL)
+    if settled is None or settled != settled_plain or xf.cf_state.target != 0:
+        fail(f"fades did not settle on the last IR (settled {settled}, {settled_plain})")
+    n_xf = XFADE_BLOCKS * BLOCK
+    x_xf = x_host.reshape(-1)[:n_xf].astype(np.float64)
+    direct_a = scipy.signal.fftconvolve(x_xf, ir[:n_xf].astype(np.float64))[:n_xf]
+    direct_c = scipy.signal.fftconvolve(x_xf, ir_c[:n_xf].astype(np.float64))[:n_xf]
+    flat = y_xf.reshape(-1)
+    gate("B3 before the update vs float64 convolution with the first IR",
+         max_abs(flat[:XFADE_UPDATE * BLOCK], direct_a[:XFADE_UPDATE * BLOCK]), PARITY_TOL)
+    gate(f"B3 from block {settled} (both fades over) vs float64 convolution with "
+         "the last IR", max_abs(flat[settled * BLOCK:], direct_c[settled * BLOCK:]),
+         PARITY_TOL)
+    phase_done("6 B3 crossfade")
+
+    # ---- 7. B4: 30 s IR streaming, f32 and bf16 tables ---------------------
+    ir30 = (rng.standard_normal(STREAM_SECONDS * SR) * 0.01).astype(np.float32)
+    x_st_host = rng.standard_normal((STREAM_CALLS, STREAM_CALL * BLOCK)).astype(np.float32)
+    x_st = torch.from_numpy(x_st_host).to(dev)
+    st = CudaStreamingConvolver(ir30, BLOCK, len(ir30), device=dev)
+    st_bf = CudaStreamingConvolver(ir30, BLOCK, len(ir30), device=dev,
+                                   storage="bf16_packed")
+    n_st = st.cfg.seg_count
+    print(f"stream: N={n_st} (chunk {st.chunk}), {STREAM_CALLS} calls of {STREAM_CALL} "
+          f"blocks = {STREAM_CALLS * STREAM_CALL} blocks", flush=True)
+    if n_st != 11264 or STREAM_CALLS * STREAM_CALL <= n_st:
+        fail("stream shape differs from N=11264 or the ring would not wrap")
+    st_plain, st_bf_plain = st.clone(), st_bf.clone()
+    st_plain._step = st_bf_plain._step = cuda_stream.stream_plain
+    y_st = counts.drive("B4 f32 path", lambda: run_blocks(st, x_st), {"B4": STREAM_CALLS})
+    y_bf = counts.drive("B4 bf16 path", lambda: run_blocks(st_bf, x_st),
+                        {"B4p": STREAM_CALLS})
+    launches.update(B4=STREAM_CALLS, B4p=STREAM_CALLS)
+    if st.state.w != (STREAM_CALLS * STREAM_CALL) % n_st:
+        fail(f"ring head {st.state.w} after {STREAM_CALLS * STREAM_CALL} blocks")
+    b4_err = max_abs(y_st, run_blocks(st_plain, x_st))
+    gate("B4 f32 kernel vs plain (30 s IR, 11520 blocks)", b4_err, PARITY_TOL)
+    b4p_err = max_abs(y_bf, run_blocks(st_bf_plain, x_st))
+    gate("B4 bf16 kernel vs plain", b4p_err, PARITY_TOL)
+    n_x = x_st_host.size
+    direct30 = scipy.signal.fftconvolve(x_st_host.reshape(-1).astype(np.float64),
+                                        ir30.astype(np.float64))[:n_x]
+    print(f"B4 output scale {float(y_st.abs().max())!r}", flush=True)
+    gate("B4 f32 path vs float64 fftconvolve", max_abs(y_st, direct30), PARITY_TOL)
+    gate("B4 bf16 path vs f32 path, relative to the output scale", rel(y_bf, y_st),
+         PACKED_REL_TOL)
+    if not (torch.isfinite(y_st).all() and torch.isfinite(y_bf).all()):
+        fail("non-finite stream output")
+    phase_done("7 B4 stream")
+
+    # ---- 8. B1p: bf16 ring and table at the flagship shape ------------------
+    uni_bf = CudaFFTConvolver(ir, BLOCK, len(ir), device=dev, storage="bf16_packed")
+    uni_bf_plain = uni_bf.clone()
+    uni_bf_plain._step = cuda_engine.block_step_plain
+    y_bf1 = counts.drive("B1p path", lambda: run_blocks(uni_bf, xs[:N_UNIFORM]),
+                         {"B1p": N_UNIFORM})
+    launches["B1p"] = N_UNIFORM
+    b1p_err = max_abs(y_bf1, run_blocks(uni_bf_plain, xs[:N_UNIFORM]))
+    gate("B1p kernel vs plain (CudaFFTConvolver bf16_packed, 128 blocks)", b1p_err,
+         PARITY_TOL)
+    gate("B1p path vs B1 f32 kernel path, relative to the output scale",
+         rel(y_bf1, y_uni), PACKED_REL_TOL)
+    phase_done("8 B1p")
+
+    # ---- 9. latency of B3, B1p (per block) and B4 (per call) ----------------
+    compare("B3", xf, xf_plain, xs)
+    compare("B1p", uni_bf, uni_bf_plain, xs)
+    compare("B4", st, st_plain, x_st, unit="call", warmup=STREAM_WARMUP,
+            timed_n=STREAM_TIMED)
+    compare("B4p", st_bf, st_bf_plain, x_st, unit="call", warmup=STREAM_WARMUP,
+            timed_n=STREAM_TIMED)
+    for label in ("B4", "B4p"):
+        for kind in ("kernel", "plain"):
+            per_block = [r["event_ms"] / STREAM_CALL for r in timing[label][kind]]
+            print(f"latency {label} {kind}: event median per block {per_block!r} ms",
+                  flush=True)
+    phase_done("9 B3/B1p/B4 latency")
 
     def best(label, kind, key="event_ms"):
         return min(r[key] for r in timing[label][kind])
 
+    def row(label, name, source, replaces, err):
+        return {"name": name, "route": "cuda",
+                "source": f"fft_convolution_tpu_torch/csrc/{source}",
+                "replaces": f"fft_convolution_tpu/ops/{replaces}",
+                "launches": launches[label], "max_abs_err": err,
+                "ms": best(label, "kernel"), "plain_ms": best(label, "plain")}
+
     kernels = [
-        {"name": "B1 uniform block step", "route": "cuda",
-         "source": "fft_convolution_tpu_torch/csrc/b1_uniform_step.cu",
-         "replaces": "fft_convolution_tpu/ops/pallas_engine.py:171",
-         "launches": launches["B1"], "max_abs_err": b1_err,
-         "ms": best("B1", "kernel"), "plain_ms": best("B1", "plain")},
-        {"name": "B2 fused head+tail0 block step", "route": "cuda",
-         "source": "fft_convolution_tpu_torch/csrc/b2_two_stage_step.cu",
-         "replaces": "fft_convolution_tpu/ops/pallas_two_stage.py:92",
-         "launches": launches["B2"], "max_abs_err": b2_err,
-         "ms": best("B2", "kernel"), "plain_ms": best("B2", "plain")},
+        row("B1", "B1 uniform block step", "b1_uniform_step.cu", "pallas_engine.py:171",
+            b1_err),
+        row("B2", "B2 fused head+tail0 block step", "b2_two_stage_step.cu",
+            "pallas_two_stage.py:92", b2_err),
+        row("B3", "B3 crossfade A/B block step with the mix", "b3_crossfade_step.cu",
+            "pallas_crossfade.py:135", b3_err),
+        row("B4", "B4-f32 long-IR stream, f32 table (ms per 64-block call)",
+            "b4_stream.cu", "pallas_stream.py:96", b4_err),
+        row("B4p", "B4-bf16 long-IR stream, bf16 table (ms per 64-block call)",
+            "b4_stream.cu", "pallas_stream.py:96", b4p_err),
+        row("B1p", "B1p uniform block step, bf16 ring and table", "b1_uniform_step.cu",
+            "pallas_engine.py:240", b1p_err),
     ]
+    print(f"total: {time.perf_counter() - t_run:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,40 +1,42 @@
 """fft_convolution_tpu_torch — the PyTorch and CUDA port of
 ``fft_convolution_tpu`` for NVIDIA Hopper.
 
-Real-time-safe uniform and non-uniform (two-stage) partitioned convolution
-with the reference's ``Convolution`` surface (``src/lib.rs:5-14``), and
-single-block serving wrappers over hand-written CUDA kernels.  Imports
-``torch`` and never ``jax``; kernels are built with ``nvcc`` at their first
-CUDA use.
+Real-time-safe uniform, non-uniform (two-stage) and crossfading
+partitioned convolution with the reference's ``Convolution`` surface
+(``src/lib.rs:5-14``), and serving wrappers over hand-written CUDA kernels.
+Imports ``torch`` and never ``jax``; kernels are built with ``nvcc`` at
+their first CUDA use.
 
 Public surface ported so far:
 
 * :class:`~fft_convolution_tpu_torch.api.Convolution` — the protocol
 * :class:`~fft_convolution_tpu_torch.api.FFTConvolver` — uniform partitions
 * :class:`~fft_convolution_tpu_torch.api_two_stage.TwoStageFFTConvolver`
-* :class:`~fft_convolution_tpu_torch.serving.CudaFFTConvolver` — kernel B1
+* :class:`~fft_convolution_tpu_torch.api_crossfade.CrossfadeConvolver` —
+  IR switching over any engine
+* :class:`~fft_convolution_tpu_torch.serving.CudaFFTConvolver` — kernel B1,
+  or B1p with ``storage="bf16_packed"``
 * :class:`~fft_convolution_tpu_torch.serving.CudaTwoStageConvolver` — kernel B2
+* :class:`~fft_convolution_tpu_torch.serving.CudaCrossfadeConvolver` — kernel B3
+* :class:`~fft_convolution_tpu_torch.serving.CudaStreamingConvolver` — kernel B4
 """
 
 from .api import Convolution, FFTConvolver
 
-__all__ = [
-    "Convolution",
-    "FFTConvolver",
-    "TwoStageFFTConvolver",
-    "CudaFFTConvolver",
-    "CudaTwoStageConvolver",
-]
+_LAZY = {
+    "TwoStageFFTConvolver": "api_two_stage",
+    "CrossfadeConvolver": "api_crossfade",
+    "CudaFFTConvolver": "serving",
+    "CudaTwoStageConvolver": "serving",
+    "CudaCrossfadeConvolver": "serving",
+    "CudaStreamingConvolver": "serving",
+}
+
+__all__ = ["Convolution", "FFTConvolver", *_LAZY]
 
 
 def __getattr__(name):
-    if name == "TwoStageFFTConvolver":
-        from .api_two_stage import TwoStageFFTConvolver
-        return TwoStageFFTConvolver
-    if name == "CudaFFTConvolver":
-        from .serving import CudaFFTConvolver
-        return CudaFFTConvolver
-    if name == "CudaTwoStageConvolver":
-        from .serving import CudaTwoStageConvolver
-        return CudaTwoStageConvolver
+    if name in _LAZY:
+        import importlib
+        return getattr(importlib.import_module(f".{_LAZY[name]}", __name__), name)
     raise AttributeError(name)

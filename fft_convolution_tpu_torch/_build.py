@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface under ``build/kernels/`` at the repository root,
-and load with ``ctypes``.  The build happens at the first CUDA use, never at
+Each source compiles with its own ``nvcc`` for ``sm_90a``, all started
+together, and the objects link into one shared library with a plain C
+interface under ``build/kernels/`` at the repository root, loaded with
+``ctypes``.  The build happens at the first CUDA use, never at
 import; its file name carries a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one loads the library already built.
 """
@@ -19,17 +20,26 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+          "-Xcompiler", "-fPIC"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of every exported function: c_void_p for each pointer and
-# the stream (a plain int would cut a 64-bit pointer), c_int for each int
+# the stream (a plain int would cut a 64-bit pointer), c_int for each int,
+# c_float for each float
 _SIGNATURES = {
     # x, seg, ir, tw, partial, y, overlap; n, b, cur, rows, grid; stream
     "fdl_b1_step": [_P] * 7 + [_I] * 5 + [_P],
+    "fdl_b1p_step": [_P] * 7 + [_I] * 5 + [_P],
     # x, seg, h_ir, t_ir, tw, partial, y, h_ov, t_ov, out0_row,
     # tail_in_row, pre0_row, pre_row; n, b, cur, rows, grid; stream
     "fdl_b2_step": [_P] * 13 + [_I] * 5 + [_P],
+    # x, seg, ir_a, ir_b, tw, partial, y, ov_a, ov_b; n, b, cur, rows, grid,
+    # approaching, is_b, counter, fading, mixer; mix_value, step; stream
+    "fdl_b3_step": [_P] * 9 + [_I] * 10 + [_F] * 2 + [_P],
+    # x, spec, ring, irrev, tw, partial, tails, y, overlap; n, b, T, w0,
+    # rows, splits; stream
+    "fdl_b4_stream": [_P] * 9 + [_I] * 6 + [_P],
+    "fdl_b4p_stream": [_P] * 9 + [_I] * 6 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -57,25 +67,47 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfdl_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> list[subprocess.CompletedProcess]:
+    """Run the commands side by side; wait for all of them."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]  # drains each pipe, then waits
+    return [subprocess.CompletedProcess(c, p.returncode, o, "")
+            for c, p, o in zip(cmds, procs, outs)]
+
+
 def build() -> Path:
-    """Compile the kernels unless the library for these sources exists.
-    Raises ``RuntimeError`` with nvcc's output when the build fails; the
-    compiler's report (registers, shared memory, spills) is kept beside the
-    library as ``.log``."""
+    """Compile the kernels unless the library for these sources exists: one
+    ``nvcc`` per source, all at once, then one link.  Raises
+    ``RuntimeError`` with nvcc's output when a step fails; the compiler's
+    report (registers, shared memory, spills) is kept beside the library as
+    ``.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources() if s.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    cus = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in cus]
+    tmp = out.with_name(f"{tag}.tmp")
+    log = []
+    try:
+        steps = [[[nvcc, *_FLAGS, "-Xptxas", "-v", "-c", "-o", str(o), str(s)]
+                  for s, o in zip(cus, objs)],
+                 [[nvcc, *_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]]]
+        for cmds in steps:
+            for proc in _run_all(cmds):
+                log.append(f"$ {' '.join(proc.args)}\n{proc.stdout}")
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                       f"{' '.join(proc.args)}\n{proc.stdout}")
+        out.with_suffix(".log").write_text("\n".join(log))
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        for o in objs:
+            o.unlink(missing_ok=True)
     return out
 
 

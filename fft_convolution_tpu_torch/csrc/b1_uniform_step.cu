@@ -15,6 +15,14 @@
 // design spreads the rows over ~130 thread blocks, one per SM, each thread
 // on one bin so that a warp reads 256 contiguous bytes per row, and reduces
 // the per-block partial spectra in a second launch in fixed order.
+//
+// Kernel B1p (fdl_b1p_step) is the same step over bf16 storage: it replaces
+// fft_convolution_tpu/ops/pallas_engine.py:_kernel_packed (via
+// block_step_packed).  Ring and table hold bf16 pairs (__nv_bfloat162, not
+// the TPU's packed uint32 words), widened to FP32 on load; the fresh
+// spectrum is written into the ring rounded to nearest even, and the
+// current block's term uses it unrounded, as the TPU kernel's stale-row
+// correction does.  Half the bytes of B1 per step (3.9 MB at the flagship).
 #include "fdl_common.cuh"
 
 namespace {
@@ -43,25 +51,25 @@ __global__ void b1_finalize(const float2* __restrict__ partial, int grid,
 
 }  // namespace
 
-// x f32[b]; seg c64[n, b+1] (row cur written); ir c64[n, b+1];
-// tw f32[2b, 2]; partial c64[grid, b+1] scratch; y f32[b] out;
-// overlap f32[b] in/out.  Returns cudaGetLastError() after the launches.
-extern "C" int fdl_b1_step(const float* x, void* seg, const void* ir,
-                           const void* tw, void* partial, float* y,
-                           float* overlap, int n, int b, int cur, int rows,
-                           int grid, void* stream) {
+namespace {
+
+// One step with ring and table bins stored as T (float2 or __nv_bfloat162).
+template <typename T>
+int b1_step(const float* x, void* seg, const void* ir, const void* tw,
+            void* partial, float* y, float* overlap, int n, int b, int cur,
+            int rows, int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t mac_smem = fdl::mac_smem(b);
   const size_t fin_smem = static_cast<size_t>(b + 1 + 2 * b) * sizeof(float2) +
                           2 * b * sizeof(float);
-  cudaError_t e = fdl::allow_smem(fdl::mac_partial<1>, mac_smem);
+  cudaError_t e = fdl::allow_smem(fdl::mac_partial<1, T>, mac_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   e = fdl::allow_smem(b1_finalize, fin_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  fdl::Tables<1> tables{{static_cast<const float2*>(ir)}};
-  fdl::mac_partial<1><<<grid, fdl::mac_threads(b), mac_smem, s>>>(
-      x, static_cast<float2*>(seg), tables, static_cast<const float2*>(tw),
+  fdl::Tables<1, T> tables{{static_cast<const T*>(ir)}};
+  fdl::mac_partial<1, T><<<grid, fdl::mac_threads(b), mac_smem, s>>>(
+      x, static_cast<T*>(seg), tables, static_cast<const float2*>(tw),
       static_cast<float2*>(partial), n, b, cur, rows);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -69,6 +77,28 @@ extern "C" int fdl_b1_step(const float* x, void* seg, const void* ir,
       static_cast<const float2*>(partial), grid, static_cast<const float2*>(tw),
       y, overlap, b);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x f32[b]; seg c64[n, b+1] (row cur written); ir c64[n, b+1];
+// tw f32[2b, 2]; partial c64[grid, b+1] scratch; y f32[b] out;
+// overlap f32[b] in/out.  Returns cudaGetLastError() after the launches.
+extern "C" int fdl_b1_step(const float* x, void* seg, const void* ir,
+                           const void* tw, void* partial, float* y,
+                           float* overlap, int n, int b, int cur, int rows,
+                           int grid, void* stream) {
+  return b1_step<float2>(x, seg, ir, tw, partial, y, overlap, n, b, cur, rows,
+                         grid, stream);
+}
+
+// B1p: as fdl_b1_step with seg and ir bf16[n, b+1, 2].
+extern "C" int fdl_b1p_step(const float* x, void* seg, const void* ir,
+                            const void* tw, void* partial, float* y,
+                            float* overlap, int n, int b, int cur, int rows,
+                            int grid, void* stream) {
+  return b1_step<__nv_bfloat162>(x, seg, ir, tw, partial, y, overlap, n, b, cur,
+                                 rows, grid, stream);
 }
 
 // The message for a cudaError_t returned by the step functions.

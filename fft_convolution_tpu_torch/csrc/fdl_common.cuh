@@ -1,7 +1,9 @@
-// Shared pieces of the frequency-delay-line block-step kernels (B1, B2).
+// Shared pieces of the frequency-delay-line kernels (B1, B1p, B2, B3, B4).
 //
 // Spectra are complex64 rows of B+1 bins (float2, interleaved re/im), the
-// layout torch.fft.rfft gives for a 2B-point real transform.  The DFTs are
+// layout torch.fft.rfft gives for a 2B-point real transform.  The bf16
+// storage variants keep rows of __nv_bfloat162 (torch.bfloat16 [.., B+1, 2])
+// and widen each bin to float2 on load; all arithmetic is FP32.  The DFTs are
 // direct sums against a float32 twiddle table tw[m] = (cos, sin)(2 pi m / 2B)
 // built in float64 on the host; every sum runs in a fixed order, so a step
 // is bit-reproducible.  No TF32, no library transforms: plain FP32 FMA.
@@ -16,15 +18,35 @@
 // atomics), runs the inverse DFT and the overlap-add.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace fdl {
 
 constexpr int kFinalizeThreads = 256;
 
-template <int NT>
+// A stored complex bin, widened to float2; stores round to nearest even.
+__device__ __forceinline__ float2 load_c(const float2* p) { return *p; }
+__device__ __forceinline__ float2 load_c(const __nv_bfloat162* p) {
+  return __bfloat1622float2(*p);
+}
+__device__ __forceinline__ void store_c(float2* p, float2 v) { *p = v; }
+__device__ __forceinline__ void store_c(__nv_bfloat162* p, float2 v) {
+  *p = __float22bfloat162_rn(v);
+}
+
+// acc += s * h (complex), four FP32 FMAs in a fixed order.
+__device__ __forceinline__ void cmac(float2& acc, float2 s, float2 h) {
+  acc.x = fmaf(s.x, h.x, acc.x);
+  acc.x = fmaf(-s.y, h.y, acc.x);
+  acc.y = fmaf(s.x, h.y, acc.y);
+  acc.y = fmaf(s.y, h.x, acc.y);
+}
+
+// NT IR tables with bins stored as T (float2 or __nv_bfloat162).
+template <int NT, typename T = float2>
 struct Tables {
-  const float2* p[NT];
+  const T* p[NT];
 };
 
 // spec[k] = sum_{i<b} x[i] exp(-2 pi i k i / 2b), k = 0..b: the rFFT of the
@@ -72,10 +94,13 @@ __device__ __forceinline__ void irdft(const float2* spec, const float2* tw,
 // Partial MAC of ring rows [j0, j1) against NT IR tables:
 //   partial[t][g][k] = sum_j seg[j][k] * ir_t[(j - cur) mod n][k]
 // with row `cur` taken from the fresh spectrum of x (see the file note).
+// Ring and tables store bins as T; with bf16 storage the current block's
+// term stays FP32 on the ring side (the fresh spectrum), and the ring row
+// is written rounded.
 // Dynamic shared memory: (b+1 + 2b) float2 + b float.
-template <int NT>
-__global__ void mac_partial(const float* __restrict__ x, float2* seg,
-                            Tables<NT> ir, const float2* __restrict__ tw,
+template <int NT, typename T = float2>
+__global__ void mac_partial(const float* __restrict__ x, T* seg,
+                            Tables<NT, T> ir, const float2* __restrict__ tw,
                             float2* __restrict__ partial, int n, int b,
                             int cur, int rows) {
   extern __shared__ float4 smem[];
@@ -100,19 +125,14 @@ __global__ void mac_partial(const float* __restrict__ x, float2* seg,
 #pragma unroll
     for (int t = 0; t < NT; ++t) acc[t] = make_float2(0.f, 0.f);
     for (int j = j0; j < j1; ++j) {
-      const float2 s = (j == cur) ? spec[k] : seg[static_cast<size_t>(j) * nb + k];
+      const float2 s = (j == cur) ? spec[k] : load_c(seg + static_cast<size_t>(j) * nb + k);
       int r = j - cur;
       if (r < 0) r += n;
 #pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        const float2 h = ir.p[t][static_cast<size_t>(r) * nb + k];
-        acc[t].x = fmaf(s.x, h.x, acc[t].x);
-        acc[t].x = fmaf(-s.y, h.y, acc[t].x);
-        acc[t].y = fmaf(s.x, h.y, acc[t].y);
-        acc[t].y = fmaf(s.y, h.x, acc[t].y);
-      }
+      for (int t = 0; t < NT; ++t)
+        cmac(acc[t], s, load_c(ir.p[t] + static_cast<size_t>(r) * nb + k));
     }
-    if (owner) seg[static_cast<size_t>(cur) * nb + k] = spec[k];
+    if (owner) store_c(seg + static_cast<size_t>(cur) * nb + k, spec[k]);
 #pragma unroll
     for (int t = 0; t < NT; ++t)
       partial[(static_cast<size_t>(t) * gridDim.x + blockIdx.x) * nb + k] = acc[t];

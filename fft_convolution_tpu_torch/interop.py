@@ -1,13 +1,17 @@
 """State carrier from the JAX package to this one.
 
 Turns the JAX package's engine and kernel states — ``UniformState``,
-``TwoStageState``, and the Pallas kernels' ``PallasFDLState`` /
-``PallasFDLConsts`` and ``FusedHeadState`` / ``FusedHeadConsts`` — into this
+``TwoStageState``, ``CrossfaderState``, and the Pallas kernels'
+``PallasFDLState`` / ``PallasFDLConsts`` (and their packed forms),
+``FusedHeadState`` / ``FusedHeadConsts``, ``XfadeState`` / ``XfadeConsts``
+and ``StreamState`` / ``StreamConsts`` / ``StreamConstsPacked`` — into this
 package's states on a given device, so both packages can run on from the
 same mid-stream state.  Fields are read through ``numpy.asarray``, so any
 object with those attribute names works; JAX itself is not imported.
 Spectra move from the packed halfcomplex layout ``[..., 2, B]`` (Nyquist
-in ``im[0]``) to ``complex64 [..., B + 1]``.
+in ``im[0]``) to ``complex64 [..., B + 1]``; the TPU's bf16 words
+(``uint32``, ``re`` in the high half) become bf16 pairs ``[..., B + 1, 2]``
+exactly.
 """
 
 from __future__ import annotations
@@ -15,9 +19,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.crossfade import CrossfaderState
 from .models.two_stage import TwoStageState
 from .models.uniform import UniformState
-from .ops.cuda_engine import FDLConsts, FDLState
+from .ops.cuda_crossfade import XfadeConsts, XfadeState
+from .ops.cuda_engine import FDLConsts, FDLState, to_bf16
+from .ops.cuda_stream import StreamConsts, StreamState
 from .ops.cuda_two_stage import FusedConsts, FusedState
 from .ops.fft import packed_to_complex, twiddles
 
@@ -33,6 +40,16 @@ def _spectra(packed, device) -> torch.Tensor:
 def _planes(re, im, device) -> torch.Tensor:
     """Separate ``[N, B]`` re/im kernel planes -> ``complex64 [N, B + 1]``."""
     return _spectra(np.stack([np.asarray(re), np.asarray(im)], axis=-2), device)
+
+
+def _words(w, device) -> torch.Tensor:
+    """Packed bf16 words ``uint32 [N, B]`` -> bf16 pairs ``[N, B + 1, 2]``:
+    ``re = w & 0xFFFF0000`` and ``im = w << 16``, each read as float32, are
+    the exact widened bf16 values, so the narrowing back is exact."""
+    w = np.asarray(w, dtype=np.uint32)
+    re = (w & np.uint32(0xFFFF0000)).view(np.float32)
+    im = (w << np.uint32(16)).view(np.float32)
+    return to_bf16(_planes(re, im, device))
 
 
 def _int(a) -> int:
@@ -92,3 +109,52 @@ def fused_head(jconsts, jstate, device="cpu") -> tuple[FusedConsts, FusedState]:
                        head_overlap=_f32(jstate.head_overlap, device).reshape(-1),
                        t0_overlap=_f32(jstate.t0_overlap, device).reshape(-1),
                        current=_int(jstate.current)))
+
+
+def fdl_packed(jconsts, jstate, device="cpu") -> tuple[FDLConsts, FDLState]:
+    """Kernel B1p operands from ``pallas_engine.PallasFDLConstsPacked`` and
+    ``PallasFDLStatePacked`` (one copy of the doubled table)."""
+    n = np.asarray(jstate.seg_w).shape[0]
+    ir = _words(np.asarray(jconsts.ir2_w)[:n], device)
+    b = ir.shape[1] - 1
+    return (FDLConsts(ir=ir, tw=twiddles(2 * b, device)),
+            FDLState(segments=_words(jstate.seg_w, device),
+                     overlap=_f32(jstate.overlap, device).reshape(-1),
+                     current=_int(jstate.current)))
+
+
+def xfade(jconsts, jstate, device="cpu") -> tuple[XfadeConsts, XfadeState]:
+    """Kernel B3 operands from ``pallas_crossfade.XfadeConsts`` and
+    ``XfadeState`` (one copy of each doubled table)."""
+    n = np.asarray(jstate.seg_re).shape[0]
+    ir_a = _planes(np.asarray(jconsts.a2_re)[:n], np.asarray(jconsts.a2_im)[:n], device)
+    ir_b = _planes(np.asarray(jconsts.b2_re)[:n], np.asarray(jconsts.b2_im)[:n], device)
+    b = ir_a.shape[1] - 1
+    return (XfadeConsts(ir_a=ir_a, ir_b=ir_b, tw=twiddles(2 * b, device)),
+            XfadeState(segments=_planes(jstate.seg_re, jstate.seg_im, device),
+                       overlap_a=_f32(jstate.overlap_a, device).reshape(-1),
+                       overlap_b=_f32(jstate.overlap_b, device).reshape(-1),
+                       current=_int(jstate.current)))
+
+
+def crossfader_state(js) -> CrossfaderState:
+    """A JAX ``models.crossfade.CrossfaderState`` as host scalars."""
+    return CrossfaderState(target=_int(js.target), approaching=bool(_int(js.approaching)),
+                           counter=_int(js.counter),
+                           mix_value=np.float32(np.asarray(js.mix_value)),
+                           step=np.float32(np.asarray(js.step)))
+
+
+def stream(jconsts, jstate, device="cpu") -> tuple[StreamConsts, StreamState]:
+    """Kernel B4 operands from ``pallas_stream.StreamConsts`` (f32 table) or
+    ``StreamConstsPacked`` (bf16 words) and ``StreamState``: the reversed
+    table and the chronological ring map row for row."""
+    if hasattr(jconsts, "irrev_w"):
+        irrev = _words(jconsts.irrev_w, device)
+    else:
+        irrev = _planes(jconsts.irrev_re, jconsts.irrev_im, device)
+    b = irrev.shape[1] - 1
+    return (StreamConsts(irrev=irrev, tw=twiddles(2 * b, device)),
+            StreamState(ring=_planes(jstate.ring_re, jstate.ring_im, device),
+                        overlap=_f32(jstate.overlap, device).reshape(-1),
+                        w=_int(jstate.w)))

@@ -14,6 +14,15 @@ back.  ``block_step.launches`` counts kernel launches (one per step, made of
 two CUDA launches: the split MAC and the reduction with the inverse DFT).
 The state is updated in place: the kernel writes the ring row and the
 overlap where they lie.
+
+Kernel B1p (:func:`block_step_packed`, ``fdl_b1p_step`` in the same source)
+is the step over bf16 storage — counterpart of ``pallas_engine.py``'s
+``_kernel_packed`` via ``block_step_packed``.  Ring and table are
+``torch.bfloat16 [N, B+1, 2]`` (native bf16 pairs; the JAX package's
+uint32 words are a TPU layout fix), rounded to nearest even on store; the
+current block's term stays float32 on the ring side.  It counts its own
+launches in ``block_step_packed.launches``; :func:`block_step_plain` serves
+both storages.
 """
 
 from __future__ import annotations
@@ -32,17 +41,39 @@ from .fft import twiddles
 MAX_BLOCK = 2048
 
 
+STORAGES = ("float32", "bf16_packed")
+
+
+def to_bf16(spec: torch.Tensor) -> torch.Tensor:
+    """complex64 ``[..., B+1]`` -> bf16 pairs ``[..., B+1, 2]``, rounded to
+    nearest even (as the JAX package's ``pack_c32``)."""
+    return torch.view_as_real(spec).to(torch.bfloat16)
+
+
+def as_c64(t: torch.Tensor) -> torch.Tensor:
+    """complex64 view of a spectrum table in either storage (bf16 widens
+    exactly)."""
+    return t if t.is_complex() else torch.view_as_complex(t.float())
+
+
+def store(spec: torch.Tensor, storage: str) -> torch.Tensor:
+    """A complex64 spectrum table in ``storage`` (a copy)."""
+    if storage not in STORAGES:
+        raise ValueError(f"storage must be one of {STORAGES}, got {storage!r}")
+    return spec.clone() if storage == "float32" else to_bf16(spec)
+
+
 @dataclasses.dataclass
 class FDLConsts:
     """Per-IR tables (rebuilt on ``update``)."""
 
-    ir: torch.Tensor   # complex64 [N, B+1] IR partition spectra
+    ir: torch.Tensor   # complex64 [N, B+1] IR partition spectra, or bf16 [N, B+1, 2]
     tw: torch.Tensor   # f32 [2B, 2] twiddle table the kernel reads
 
 
 @dataclasses.dataclass
 class FDLState:
-    segments: torch.Tensor  # complex64 [N, B+1] input-spectra ring
+    segments: torch.Tensor  # input-spectra ring, in the table's storage
     overlap: torch.Tensor   # f32 [B]
     current: int            # ring head
 
@@ -50,18 +81,21 @@ class FDLState:
         return FDLState(self.segments.clone(), self.overlap.clone(), self.current)
 
 
-def from_uniform(cfg: UniformConfig, state: UniformState) -> tuple[FDLConsts, FDLState]:
-    """Kernel operands from a uniform engine's IR table and state (copies)."""
-    consts = FDLConsts(ir=state.segments_ir.clone(),
+def from_uniform(cfg: UniformConfig, state: UniformState,
+                 storage: str = "float32") -> tuple[FDLConsts, FDLState]:
+    """Kernel operands from a uniform engine's IR table and state (copies),
+    with ring and table in ``storage``."""
+    consts = FDLConsts(ir=store(state.segments_ir, storage),
                        tw=twiddles(cfg.fft_size, state.segments.device))
-    return consts, FDLState(state.segments.clone(), state.overlap.clone(), state.current)
+    return consts, FDLState(store(state.segments, storage), state.overlap.clone(),
+                            state.current)
 
 
 def to_uniform(fstate: FDLState, template: UniformState) -> UniformState:
     """Back to the engine state, for the sequential paths.  Their
     ``pre_multiplied`` is recomputed at the next block start."""
     out = template.clone()
-    out.segments = fstate.segments.clone()
+    out.segments = as_c64(fstate.segments).clone()
     out.overlap = fstate.overlap.clone()
     out.current = fstate.current
     return out
@@ -101,32 +135,35 @@ def rolled_mac(segments: torch.Tensor, ir: torch.Tensor, cur: int) -> torch.Tens
 
 
 def block_step_plain(consts: FDLConsts, state: FDLState, x: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of the step, on any device."""
-    n, nb = state.segments.shape
+    """The plain PyTorch version of the step (B1 and B1p), on any device."""
+    n, nb = state.segments.shape[:2]
     b = nb - 1
     cur = state.current
-    state.segments[cur] = torch.fft.rfft(x, n=2 * b)
-    out = torch.fft.irfft(rolled_mac(state.segments, consts.ir, cur), n=2 * b)
+    spec = torch.fft.rfft(x, n=2 * b)
+    segments = as_c64(state.segments)  # the ring itself, or a widened copy of it
+    segments[cur] = spec  # unrounded: the current block's term stays f32
+    out = torch.fft.irfft(rolled_mac(segments, as_c64(consts.ir), cur), n=2 * b)
+    if not state.segments.is_complex():
+        state.segments[cur] = to_bf16(spec)
     y = out[:b] + state.overlap
     state.overlap.copy_(out[b:])
     state.current = cur - 1 if cur > 0 else n - 1
     return y
 
 
-def block_step(consts: FDLConsts, state: FDLState, x: torch.Tensor) -> torch.Tensor:
-    """One fused block step; returns ``y`` ``[B]``.  CUDA tensors launch
-    kernel B1, CPU tensors take :func:`block_step_plain`."""
-    if x.device.type == "cpu":
-        return block_step_plain(consts, state, x)
+def _launch(name: str, dtype: torch.dtype, consts: FDLConsts, state: FDLState,
+            x: torch.Tensor) -> torch.Tensor:
+    """Check the operands, launch ``name`` and decrement ``current``."""
     if x.device.type != "cuda":
-        raise ValueError(f"block_step: no kernel for device {x.device}")
-    n, nb = state.segments.shape
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    n, nb = state.segments.shape[:2]
     b = nb - 1
     check_block(b)
     dev = x.device
+    shape = (n, nb) if dtype == torch.complex64 else (n, nb, 2)
     require(x, "x", (b,), torch.float32, dev)
-    require(state.segments, "segments", (n, nb), torch.complex64, dev)
-    require(consts.ir, "ir", (n, nb), torch.complex64, dev)
+    require(state.segments, "segments", shape, dtype, dev)
+    require(consts.ir, "ir", shape, dtype, dev)
     require(consts.tw, "tw", (2 * b, 2), torch.float32, dev)
     require(state.overlap, "overlap", (b,), torch.float32, dev)
     if not 0 <= state.current < n:
@@ -134,15 +171,35 @@ def block_step(consts: FDLConsts, state: FDLState, x: torch.Tensor) -> torch.Ten
     rows, grid = split_rows(n)
     partial = torch.empty((grid, nb), dtype=torch.complex64, device=dev)
     y = torch.empty(b, device=dev)
-    err = _build.library().fdl_b1_step(
+    err = getattr(_build.library(), name)(
         x.data_ptr(), state.segments.data_ptr(), consts.ir.data_ptr(),
         consts.tw.data_ptr(), partial.data_ptr(), y.data_ptr(),
         state.overlap.data_ptr(), n, b, state.current, rows, grid,
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "fdl_b1_step")
-    block_step.launches += 1
+    _build.check(err, name)
     state.current = state.current - 1 if state.current > 0 else n - 1
     return y
 
 
+def block_step(consts: FDLConsts, state: FDLState, x: torch.Tensor) -> torch.Tensor:
+    """One fused block step over complex64 storage; returns ``y`` ``[B]``.
+    CUDA tensors launch kernel B1, CPU tensors take :func:`block_step_plain`."""
+    if x.device.type == "cpu":
+        return block_step_plain(consts, state, x)
+    y = _launch("fdl_b1_step", torch.complex64, consts, state, x)
+    block_step.launches += 1
+    return y
+
+
+def block_step_packed(consts: FDLConsts, state: FDLState, x: torch.Tensor) -> torch.Tensor:
+    """One fused block step over bf16 storage; returns ``y`` ``[B]``.  CUDA
+    tensors launch kernel B1p, CPU tensors take :func:`block_step_plain`."""
+    if x.device.type == "cpu":
+        return block_step_plain(consts, state, x)
+    y = _launch("fdl_b1p_step", torch.bfloat16, consts, state, x)
+    block_step_packed.launches += 1
+    return y
+
+
 block_step.launches = 0
+block_step_packed.launches = 0

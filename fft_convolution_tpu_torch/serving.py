@@ -1,27 +1,56 @@
-"""Low-latency serving wrappers over the hand-written CUDA kernels —
-counterpart of ``fft_convolution_tpu/serving.py`` (``PallasFFTConvolver``
-and ``PallasTwoStageConvolver``).
+"""Serving wrappers over the hand-written CUDA kernels — counterpart of
+``fft_convolution_tpu/serving.py``, ported whole:
 
-Each ``process`` call takes exactly one block (the real-time callback shape)
-and runs one fused kernel step: B1 (:mod:`.ops.cuda_engine`) for the uniform
-wrapper, B2 (:mod:`.ops.cuda_two_stage`) for the two-stage one.  On a CPU
-device the same wrappers run the kernels' plain PyTorch versions.  Outputs
-are float32 tensors on the wrapper's device; no call synchronises with the
-card.
+* :class:`CudaFFTConvolver` — one block per call, kernel B1
+  (:mod:`.ops.cuda_engine`), or B1p with ``storage="bf16_packed"``;
+* :class:`CudaTwoStageConvolver` — one block per call, kernel B2
+  (:mod:`.ops.cuda_two_stage`) plus the big tail once per period;
+* :class:`CudaCrossfadeConvolver` — one block per call, kernel B3
+  (:mod:`.ops.cuda_crossfade`): IR morphing with the crossfade mix folded in;
+* :class:`CudaStreamingConvolver` — any block-aligned length per call,
+  kernel B4 (:mod:`.ops.cuda_stream`), for IRs of tens of seconds.
+
+On a CPU device the same wrappers run the kernels' plain PyTorch versions.
+Outputs are float32 tensors on the wrapper's device; no call synchronises
+with the card.
 
 The kernel step each wrapper calls is the attribute ``_step``; setting it to
-the module's ``block_step_plain`` runs the same wrapper through the plain
-version on the same device, which is how the kernels are held against it.
+the module's plain version (``block_step_plain``, ``stream_plain``) runs the
+same wrapper through it on the same device, which is how the kernels are
+held against it.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from .api import as_signal
-from .models import two_stage, uniform
-from .ops import cuda_engine, cuda_two_stage
+from .models import crossfade, two_stage, uniform
+from .ops import cuda_crossfade, cuda_engine, cuda_stream, cuda_two_stage
 from .ops.fft import copy_and_pad, ir_to_spectra
+
+
+def resolve_storage(storage: str, streaming: bool) -> str:
+    """The table storage a wrapper runs: ``"float32"``, ``"bf16_packed"``,
+    or ``"auto"``, resolved here for both wrappers by one rule.
+
+    Rule: ``auto`` stores bf16 where a call waits on the card reading the
+    table, and float32 where it waits on the host.  The streaming wrapper
+    (``streaming``) reads its whole table once per 16-block tile of a
+    device-bound call: with a 30 s IR at block 128, 64-block calls took
+    0.230 ms with the f32 table and 0.189 ms with bf16.  The per-block
+    wrapper is host-bound: at the 10 s flagship B1p and B1 both took 0.067
+    ms per block, so bf16 would cost precision and buy nothing.  (CUDA-event
+    medians, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6.)
+    """
+    if storage == "auto":
+        return "bf16_packed" if streaming else "float32"
+    if storage not in cuda_engine.STORAGES:
+        raise ValueError(f"storage must be 'float32', 'bf16_packed' or 'auto', "
+                         f"got {storage!r}")
+    return storage
 
 
 def _block(x, b: int, device, name: str) -> torch.Tensor:
@@ -117,22 +146,21 @@ class CudaFFTConvolver:
     The ring must stay full (``active == seg_count``, kernel B1's
     precondition): ``update`` rebuilds the IR table with the new response
     zero-padded to the same segment count and zeroes the pending overlap.
-    ``storage`` takes only ``"float32"``; the JAX package's
-    ``"bf16_packed"`` storage (kernel B1p) is still to port.
+    ``storage="bf16_packed"`` keeps ring and table as bf16 pairs (kernel
+    B1p, half the bytes per step, ~1e-3 relative on the output's history
+    terms); ``"auto"`` follows :func:`resolve_storage`.
     """
 
     def __init__(self, response, block_size: int, max_response_length: int,
                  device="cpu", storage: str = "float32"):
-        if storage != "float32":
-            raise NotImplementedError(
-                f"storage={storage!r}: only 'float32' is ported; the packed "
-                "bf16 step is ROADMAP kernel B1p")
+        self.storage = resolve_storage(storage, streaming=False)
         self.device = torch.device(device)
         self.cfg, state = uniform.init(as_signal(response, self.device), block_size,
                                        max_response_length, self.device)
         cuda_engine.check_block(self.cfg.block_size)
-        self.consts, self.state = cuda_engine.from_uniform(self.cfg, state)
-        self._step = cuda_engine.block_step
+        self.consts, self.state = cuda_engine.from_uniform(self.cfg, state, self.storage)
+        self._step = (cuda_engine.block_step_packed if self.storage == "bf16_packed"
+                      else cuda_engine.block_step)
 
     def update(self, response) -> None:
         """IR swap (``src/fft_convolver.rs:174-213``) at full ring."""
@@ -140,7 +168,8 @@ class CudaFFTConvolver:
         if response.shape[0] > self.cfg.ir_len:
             raise ValueError("New impulse response is longer than initialized length")
         padded = copy_and_pad(response, self.cfg.seg_count * self.cfg.block_size)
-        self.consts.ir = ir_to_spectra(padded, self.cfg.block_size, self.cfg.seg_count)
+        self.consts.ir = cuda_engine.store(
+            ir_to_spectra(padded, self.cfg.block_size, self.cfg.seg_count), self.storage)
         self.state.overlap.zero_()
 
     def reset(self) -> None:
@@ -161,6 +190,193 @@ class CudaFFTConvolver:
     def clone(self) -> "CudaFFTConvolver":
         other = object.__new__(CudaFFTConvolver)
         other.__dict__.update(self.__dict__)
-        other.consts = cuda_engine.FDLConsts(self.consts.ir, self.consts.tw)
+        other.consts = dataclasses.replace(self.consts)  # update replaces, never writes, ir
+        other.state = self.state.clone()
+        return other
+
+
+class CudaCrossfadeConvolver:
+    """Morph-while-serving: kernel B3 runs both engines over one shared ring
+    and mixes them per sample, one kernel step per block — counterpart of
+    ``PallasCrossfadeConvolver`` and the serving form of
+    :class:`~.api_crossfade.CrossfadeConvolver`
+    (``src/crossfade_convolver.rs:3-105``).
+
+    ``update`` rebuilds only the INACTIVE engine's table, zeroes only its
+    overlap, keeps the shared ring (the input history) and fades toward it;
+    an update that lands mid-fade parks in the single pending slot
+    (``:51-64``).  ``hold_samples = min(block_size, max_response_length)``:
+    the hold block covers the updated engine's zeroed overlap.  The ring
+    plus two tables must fit the card's memory, nothing smaller: the
+    flagship 10 s / 48 kHz IR at block 128 is 11.6 MB.
+    """
+
+    def __init__(self, response, block_size: int, max_response_length: int,
+                 crossfade_samples: int, device="cpu", mixer: str = "raised_cosine"):
+        self.device = torch.device(device)
+        self.cfg, state = uniform.init(as_signal(response, self.device), block_size,
+                                       max_response_length, self.device)
+        cuda_engine.check_block(self.cfg.block_size)
+        self.consts = cuda_crossfade.build_consts(state.segments_ir, state.segments_ir)
+        self.state = cuda_crossfade.zero_state(self.cfg.seg_count, self.cfg.block_size,
+                                               self.device)
+        self.cf_cfg = crossfade.CrossfaderConfig(
+            fading_samples=crossfade_samples,
+            hold_samples=min(self.cfg.block_size, max_response_length), mixer=mixer)
+        self.cf_state = crossfade.new_state(self.cf_cfg)
+        self.stored_response = torch.zeros(max_response_length, device=self.device)
+        self.response_pending = False
+        self._step = cuda_crossfade.block_step
+
+    def is_crossfading(self) -> bool:
+        return self.cf_state.approaching
+
+    def _swap(self, response) -> None:
+        """Rebuild the inactive table, zero its overlap, fade toward it
+        (``src/crossfade_convolver.rs:94-105``)."""
+        response = as_signal(response, self.device)
+        if response.shape[0] > self.cfg.ir_len:
+            raise ValueError("New impulse response is longer than initialized length")
+        padded = copy_and_pad(response, self.cfg.seg_count * self.cfg.block_size)
+        spec = ir_to_spectra(padded, self.cfg.block_size, self.cfg.seg_count)
+        if self.cf_state.target == crossfade.TARGET_A:
+            self.consts.ir_b = spec
+            self.state.overlap_b.zero_()
+            target = crossfade.TARGET_B
+        else:
+            self.consts.ir_a = spec
+            self.state.overlap_a.zero_()
+            target = crossfade.TARGET_A
+        self.cf_state = crossfade.fade_into(self.cf_cfg, self.cf_state, target)
+
+    def update(self, response) -> None:
+        """(``src/crossfade_convolver.rs:51-64``) — single pending slot;
+        updates while fading overwrite the stored response."""
+        if not self.is_crossfading():
+            self._swap(response)
+            self.response_pending = False
+            return
+        response = as_signal(response, self.device)
+        if response.shape[0] > self.stored_response.shape[0]:
+            raise ValueError("response longer than stored-response capacity")
+        self.stored_response.zero_()
+        self.stored_response[:response.shape[0]] = response
+        self.response_pending = True
+
+    def process(self, input) -> torch.Tensor:
+        """One block in, one mixed block out (``:66-78``): a pending swap
+        applies at block top."""
+        if not self.is_crossfading() and self.response_pending:
+            self._swap(self.stored_response)
+            self.response_pending = False
+        x = _block(input, self.cfg.block_size, self.device, "CudaCrossfadeConvolver")
+        self.cf_state, y = self._step(self.consts, self.state, self.cf_cfg,
+                                      self.cf_state, x)
+        return y
+
+    def reset(self) -> None:
+        """``todo!()`` upstream (``src/crossfade_convolver.rs:80-82``)."""
+        raise NotImplementedError(
+            "CrossfadeConvolver.reset is unimplemented upstream "
+            "(src/crossfade_convolver.rs:80-82); reset_extension() is the "
+            "documented extension")
+
+    def reset_extension(self) -> None:
+        """EXTENSION (not reference surface): zero ring and overlaps, return
+        the crossfader to Reached(A), drop any pending response; the tables
+        stay as they are, as in the JAX package."""
+        self.state = cuda_crossfade.zero_state(self.cfg.seg_count, self.cfg.block_size,
+                                               self.device)
+        self.cf_state = crossfade.new_state(self.cf_cfg)
+        self.stored_response.zero_()
+        self.response_pending = False
+
+    def snapshot(self):
+        return (dataclasses.replace(self.consts), self.state.clone(), self.cf_state,
+                self.stored_response.clone(), self.response_pending)
+
+    def restore(self, snap) -> None:
+        consts, state, self.cf_state, stored, self.response_pending = snap
+        self.consts = dataclasses.replace(consts)
+        self.state = state.clone()
+        self.stored_response = stored.clone()
+
+    def clone(self) -> "CudaCrossfadeConvolver":
+        other = object.__new__(CudaCrossfadeConvolver)
+        other.__dict__.update(self.__dict__)
+        other.restore(self.snapshot())  # _swap replaces, never writes, the tables
+        return other
+
+
+class CudaStreamingConvolver:
+    """Long-IR uniform convolver over kernel B4: ``process`` takes any
+    block-aligned length (T blocks in one kernel call), for IRs of tens of
+    seconds — counterpart of ``PallasStreamingConvolver``.
+
+    ``seg_count`` pads to a multiple of ``chunk`` with zero-IR rows,
+    equivalent to a reference convolver with a padded
+    ``max_response_length`` (``src/fft_convolver.rs:111-118``), and keeps
+    the JAX package's state layout.  ``storage="bf16_packed"`` stores only
+    the table in bf16 (the ring stays complex64); ``"auto"`` follows
+    :func:`resolve_storage`.  No limit on the IR besides the card's memory.
+    """
+
+    def __init__(self, response, block_size: int, max_response_length: int,
+                 chunk: int = 512, device="cpu", storage: str = "float32"):
+        self.storage = resolve_storage(storage, streaming=True)
+        self.device = torch.device(device)
+        response = as_signal(response, self.device)
+        if max_response_length < response.shape[0]:
+            raise ValueError("max_response_length must be at least the length of the "
+                             "initial impulse response")
+        cfg0 = uniform.make_config(block_size, max_response_length)
+        cuda_engine.check_block(cfg0.block_size)
+        self.chunk = min(chunk, cfg0.seg_count)
+        n = cuda_stream.padded_seg_count(cfg0.seg_count, self.chunk)
+        self.cfg, ustate = uniform.init(response, block_size, n * cfg0.block_size,
+                                        self.device)
+        self._declared_max = max_response_length
+        self.consts = cuda_stream.build_consts(ustate.segments_ir,
+                                               self.storage == "bf16_packed")
+        self.state = cuda_stream.zero_state(n, self.cfg.block_size, self.device)
+        self._step = (cuda_stream.stream_packed if self.storage == "bf16_packed"
+                      else cuda_stream.stream)
+
+    def process(self, input) -> torch.Tensor:
+        x = as_signal(input, self.device).contiguous()
+        b = self.cfg.block_size
+        if x.shape[0] % b:
+            raise ValueError(f"CudaStreamingConvolver.process takes block-aligned input "
+                             f"(multiples of {b} samples, got {x.shape[0]})")
+        if x.shape[0] == 0:
+            return x
+        return self._step(self.consts, self.state, x.reshape(-1, b)).reshape(-1)
+
+    def update(self, response) -> None:
+        """IR swap (``src/fft_convolver.rs:174-213``): rebuild the reversed
+        table over the full padded segment budget (the full-ring
+        precondition), zero the pending overlap, keep the ring."""
+        response = as_signal(response, self.device)
+        if response.shape[0] > self._declared_max:
+            raise ValueError("New impulse response is longer than initialized length")
+        padded = copy_and_pad(response, self.cfg.seg_count * self.cfg.block_size)
+        self.consts = cuda_stream.build_consts(
+            ir_to_spectra(padded, self.cfg.block_size, self.cfg.seg_count),
+            self.storage == "bf16_packed")
+        self.state.overlap.zero_()
+
+    def reset(self) -> None:
+        self.state = cuda_stream.zero_state(self.cfg.seg_count, self.cfg.block_size,
+                                            self.device)
+
+    def snapshot(self) -> cuda_stream.StreamState:
+        return self.state.clone()
+
+    def restore(self, snap: cuda_stream.StreamState) -> None:
+        self.state = snap.clone()
+
+    def clone(self) -> "CudaStreamingConvolver":
+        other = object.__new__(CudaStreamingConvolver)
+        other.__dict__.update(self.__dict__)  # update replaces, never writes, consts
         other.state = self.state.clone()
         return other

@@ -178,8 +178,8 @@ def test_uniform_serving_matches_pallas():
         conv.process(x[:b - 1])
     with pytest.raises(ValueError):
         conv.update(np.ones(len(ir) + 1, np.float32))
-    with pytest.raises(NotImplementedError, match="B1p"):
-        CudaFFTConvolver(ir, b, len(ir), storage="bf16_packed")
+    with pytest.raises(ValueError, match="storage"):
+        CudaFFTConvolver(ir, b, len(ir), storage="int8")
 
 
 def test_kernel_wrappers_raise_off_cpu_and_cuda():
