@@ -33,7 +33,26 @@ after; the flagship shape is block 128 and a 10 s 48 kHz IR.
    shape for 128 blocks, against its plain path (1e-4) and the f32 kernel
    path (5e-3 of the output scale);
 9. latency of B3 and B1p per block and of B4 per 64-block call, kernel path
-   against plain path (recorded, not gated).
+   against plain path (recorded, not gated);
+10. ``ReverbFarm`` (kernel B5, f32 tail) at the JAX farm's benchmark shape:
+    128 voices of random 60 s 48 kHz IRs (scale 0.002, seeded on the card),
+    block 128 — tail block 32768, period 256, head and tail0 256 segments,
+    big tail 88 segments (checked).  Calls of 8 periods until the tail phase
+    has wrapped (11), then of 2, 1, 4 and 3 periods: one B5 launch per call,
+    kernel path against the plain path over all voices (1e-4), and two
+    voices against ``scipy.signal.fftconvolve`` in float64 over the whole
+    stream (1e-4);
+11. at a period boundary ``update`` (new IRs for every voice), then
+    ``update_voices`` on 3 voices, then 2 calls: kernel against plain path
+    (1e-4), and the untouched voices bit-identical to a clone that skipped
+    ``update_voices``;
+12. the same farm with ``tail_dtype=torch.bfloat16`` (B5's bf16 form) over
+    the stream of phase 10: against its plain path (1e-4) and against the
+    f32 farm (5e-3 of the output scale);
+13. latency of 2- and 8-period farm calls, both storages, kernel path
+    against plain path, with real-time voices (voices x audio seconds /
+    wall seconds), and the time of the B5 step alone against its plain
+    version (recorded, not gated).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches, error and times.
@@ -63,6 +82,12 @@ PACKED_REL_TOL = 5e-3      # bf16 storage, of the output scale (bench.py:421-424
 XFADE_BLOCKS, XFADE_UPDATE, XFADE_FADE = 192, 64, 4 * BLOCK
 STREAM_SECONDS, STREAM_CALL, STREAM_CALLS = 30, 64, 180  # 11520 blocks > 11264
 STREAM_TIMED, STREAM_WARMUP = 32, 4                      # calls
+# the JAX farm benchmark's shape (benchmarks/configs.py:271-333, config 5)
+FARM_VOICES, FARM_SECONDS, FARM_SCALE = 128, 60, 0.002
+FARM_PERIODS = [8] * 11 + [2, 1, 4, 3]  # 11 x 8 = 88: the tail phase wraps
+FARM_SHAPES = (32768, 256, 256, 256, 88)  # tail block, period, head, tail0, tail
+FARM_UPDATED = [3, 64, 127]
+FARM_TIMED = {2: (2, 6), 8: (2, 4)}       # periods per call: (warm-up, timed) calls
 
 
 def fail(msg: str) -> None:
@@ -153,9 +178,9 @@ def main() -> None:
         sys.exit(2)
     import scipy.signal
 
-    from fft_convolution_tpu_torch import _build
-    from fft_convolution_tpu_torch.ops import (cuda_crossfade, cuda_engine, cuda_stream,
-                                               cuda_two_stage)
+    from fft_convolution_tpu_torch import ReverbFarm, _build
+    from fft_convolution_tpu_torch.ops import (cuda_crossfade, cuda_engine, cuda_farm_mac,
+                                               cuda_stream, cuda_two_stage)
     from fft_convolution_tpu_torch.ops.fft import generate_sinusoid
     from fft_convolution_tpu_torch.serving import (CudaCrossfadeConvolver, CudaFFTConvolver,
                                                    CudaStreamingConvolver,
@@ -167,7 +192,8 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     counts = Counts(B1=cuda_engine.block_step, B1p=cuda_engine.block_step_packed,
                     B2=cuda_two_stage.block_step, B3=cuda_crossfade.block_step,
-                    B4=cuda_stream.stream, B4p=cuda_stream.stream_packed)
+                    B4=cuda_stream.stream, B4p=cuda_stream.stream_packed,
+                    B5=cuda_farm_mac.phased_step, B5p=cuda_farm_mac.phased_step_packed)
     t_run = t_phase = time.perf_counter()
 
     def phase_done(name: str) -> None:
@@ -384,15 +410,143 @@ def main() -> None:
                   flush=True)
     phase_done("9 B3/B1p/B4 latency")
 
+    # ---- 10. B5: the reverb farm at 128 voices x 60 s, f32 tail ------------
+    gen = torch.Generator(device=dev).manual_seed(5)
+    farm_irs = torch.randn((FARM_VOICES, FARM_SECONDS * SR), generator=gen,
+                           device=dev) * FARM_SCALE
+    t0 = time.perf_counter()
+    farm = ReverbFarm(farm_irs, BLOCK, farm_irs.shape[1], device=dev)
+    torch.cuda.synchronize()
+    cfg = farm.cfg
+    shapes = (cfg.tail_block, cfg.period, cfg.head.seg_count, cfg.tail0.seg_count,
+              cfg.tail.seg_count)
+    print(f"farm: {FARM_VOICES} voices x {FARM_SECONDS} s, tail block {shapes[0]}, period "
+          f"{shapes[1]}, head/tail0 {shapes[2]}/{shapes[3]} segments, big tail {shapes[4]} "
+          f"segments (init {time.perf_counter() - t0:.2f} s)", flush=True)
+    if shapes != FARM_SHAPES:
+        fail(f"farm shapes {shapes} differ from {FARM_SHAPES}")
+    p = cfg.period
+    farm_x = torch.randn((sum(FARM_PERIODS) * p, FARM_VOICES, BLOCK), generator=gen,
+                         device=dev)
+    calls = list(farm_x.split([k * p for k in FARM_PERIODS]))
+    farm_plain = farm.clone()
+    farm_plain._step = cuda_farm_mac.phased_step_plain
+
+    def run_calls(f, xs_):
+        return torch.cat([f.process(xc) for xc in xs_])
+
+    y_farm = counts.drive("B5 f32 path", lambda: run_calls(farm, calls),
+                          {"B5": len(calls)})
+    if farm.state.tail.q != sum(FARM_PERIODS) % cfg.tail.seg_count:
+        fail(f"tail phase {farm.state.tail.q} after {sum(FARM_PERIODS)} periods")
+    b5_err = max_abs(y_farm, run_calls(farm_plain, calls))
+    gate(f"B5 f32 kernel vs plain (ReverbFarm, {len(calls)} calls, all voices)", b5_err,
+         PARITY_TOL)
+    print(f"farm output scale {float(y_farm.abs().max())!r}", flush=True)
+    for voice in (0, FARM_VOICES - 1):
+        xv = farm_x[:, voice].reshape(-1).double().cpu().numpy()
+        ref = scipy.signal.fftconvolve(xv, farm_irs[voice].double().cpu().numpy())[:xv.size]
+        gate(f"B5 f32 farm voice {voice} vs float64 fftconvolve ({xv.size} samples)",
+             max_abs(y_farm[:, voice].reshape(-1), ref), PARITY_TOL)
+    if not torch.isfinite(y_farm).all():
+        fail("non-finite farm output")
+    phase_done("10 B5 f32 farm")
+
+    # ---- 11. update, update_voices, two calls --------------------------------
+    new_irs = torch.randn(farm_irs.shape, generator=gen, device=dev) * FARM_SCALE
+    new3 = torch.randn((len(FARM_UPDATED), farm_irs.shape[1]), generator=gen,
+                       device=dev) * FARM_SCALE
+    x11 = list(torch.randn((2 * 8 * p, FARM_VOICES, BLOCK), generator=gen,
+                           device=dev).split(8 * p))
+    for f in (farm, farm_plain):
+        f.update(new_irs)
+    skipped = farm.clone()
+    for f in (farm, farm_plain):
+        f.update_voices(FARM_UPDATED, new3)
+    y11 = counts.drive("B5 f32 path after updates", lambda: run_calls(farm, x11),
+                       {"B5": len(x11)})
+    b5_upd_err = max_abs(y11, run_calls(farm_plain, x11))
+    gate("B5 f32 kernel vs plain after update + update_voices", b5_upd_err, PARITY_TOL)
+    keep = [i for i in range(FARM_VOICES) if i not in FARM_UPDATED]
+    if not torch.equal(y11[:, keep], run_calls(skipped, x11)[:, keep]):
+        fail("untouched voices differ from the clone that skipped update_voices")
+    print(f"update_voices: {len(keep)} untouched voices bit-identical", flush=True)
+    launches["B5"] = len(calls) + len(x11)
+    b5_err = max(b5_err, b5_upd_err)
+    del farm, farm_plain, skipped, new_irs, new3, x11, y11
+    torch.cuda.empty_cache()
+    phase_done("11 B5 updates")
+
+    # ---- 12. B5 bf16: the same farm, bf16 ring and table -----------------------
+    farm_bf = ReverbFarm(farm_irs, BLOCK, farm_irs.shape[1], device=dev,
+                         tail_dtype=torch.bfloat16)
+    farm_bf_plain = farm_bf.clone()
+    farm_bf_plain._step = cuda_farm_mac.phased_step_plain
+    y_bf5 = counts.drive("B5 bf16 path", lambda: run_calls(farm_bf, calls),
+                         {"B5p": len(calls)})
+    launches["B5p"] = len(calls)
+    b5p_err = max_abs(y_bf5, run_calls(farm_bf_plain, calls))
+    gate("B5 bf16 kernel vs plain (ReverbFarm, all voices)", b5p_err, PARITY_TOL)
+    gate("B5 bf16 farm vs f32 farm, relative to the output scale", rel(y_bf5, y_farm),
+         PACKED_REL_TOL)
+    if not torch.isfinite(y_bf5).all():
+        fail("non-finite bf16 farm output")
+    del farm_bf, farm_bf_plain, y_bf5, y_farm, farm_x, calls
+    torch.cuda.empty_cache()
+    phase_done("12 B5 bf16 farm")
+
+    # ---- 13. farm latency, kernel path against plain path ---------------------
+    for dtype, tag in ((torch.float32, "B5"), (torch.bfloat16, "B5p")):
+        f = ReverbFarm(farm_irs, BLOCK, farm_irs.shape[1], device=dev, tail_dtype=dtype)
+        f_plain = f.clone()
+        f_plain._step = cuda_farm_mac.phased_step_plain
+        for periods, (warm, timed) in FARM_TIMED.items():
+            xt = torch.randn((warm + timed, periods * p, FARM_VOICES, BLOCK), generator=gen,
+                             device=dev)
+            label = f"{tag} {periods}-period"
+            compare(label, f, f_plain, xt, unit="call", warmup=warm, timed_n=timed)
+            audio_s = periods * p * BLOCK / SR
+            for kind in ("kernel", "plain"):
+                rt = [FARM_VOICES * audio_s / (r["event_ms"] / 1e3)
+                      for r in timing[label][kind]]
+                print(f"latency {label} {kind}: real-time voices {rt!r} "
+                      f"({audio_s!r} s of audio per call)", flush=True)
+            del xt
+        # the step alone at the 8-period call's T = 8, on the farm's tensors
+        tail = f.state.tail
+        specs = torch.randn((8, FARM_VOICES, cfg.tail_block + 1), dtype=torch.complex64,
+                            generator=gen, device=dev)
+        item = 8 if dtype == torch.float32 else 4
+        lanes = FARM_VOICES * (cfg.tail_block + 1)
+        moved = (2 * cfg.tail.seg_count + 8) * lanes * item + (2 * 8 + 1) * lanes * 8
+        for kind, step in (("kernel", f._step), ("plain", cuda_farm_mac.phased_step_plain)):
+            reps = 10 if kind == "kernel" else 3
+            step(tail.ring, tail.table, specs, 0)
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            for _ in range(reps):
+                step(tail.ring, tail.table, specs, 0)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / reps
+            print(f"{tag} step alone, T=8, {kind}: {ms!r} ms; {moved / 1e9!r} GB compulsory "
+                  f"-> {moved / ms / 1e9!r} TB/s", flush=True)
+        del f, f_plain, tail, specs
+        torch.cuda.empty_cache()
+    phase_done("13 B5 latency")
+
     def best(label, kind, key="event_ms"):
         return min(r[key] for r in timing[label][kind])
 
-    def row(label, name, source, replaces, err):
+    def row(label, name, source, replaces, err, timed=None):
+        timed = timed or label
         return {"name": name, "route": "cuda",
                 "source": f"fft_convolution_tpu_torch/csrc/{source}",
                 "replaces": f"fft_convolution_tpu/ops/{replaces}",
                 "launches": launches[label], "max_abs_err": err,
-                "ms": best(label, "kernel"), "plain_ms": best(label, "plain")}
+                "ms": best(timed, "kernel"), "plain_ms": best(timed, "plain")}
 
     kernels = [
         row("B1", "B1 uniform block step", "b1_uniform_step.cu", "pallas_engine.py:171",
@@ -408,6 +562,13 @@ def main() -> None:
         row("B1p", "B1p uniform block step, bf16 ring and table", "b1_uniform_step.cu",
             "pallas_engine.py:240", b1p_err),
     ]
+    for label, name, replaces, err in (
+            ("B5", "B5-f32 farm big-tail phased step", "pallas_farm_mac.py:186", b5_err),
+            ("B5p", "B5-bf16 farm big-tail phased step, bf16 ring and table",
+             "pallas_farm_mac.py:299", b5p_err)):
+        kernels.append(row(label, name + f" ({FARM_VOICES} voices x {FARM_SECONDS} s; ms "
+                           "per 8-period ReverbFarm.process call)", "b5_farm_tail.cu",
+                           replaces, err, timed=f"{label} 8-period"))
     print(f"total: {time.perf_counter() - t_run:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

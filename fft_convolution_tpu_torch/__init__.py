@@ -3,7 +3,8 @@
 
 Real-time-safe uniform, non-uniform (two-stage) and crossfading
 partitioned convolution with the reference's ``Convolution`` surface
-(``src/lib.rs:5-14``), and serving wrappers over hand-written CUDA kernels.
+(``src/lib.rs:5-14``), serving wrappers over hand-written CUDA kernels, and
+the many-voice reverb farm.
 Imports ``torch`` and never ``jax``; kernels are built with ``nvcc`` at
 their first CUDA use.
 
@@ -19,6 +20,8 @@ Public surface ported so far:
 * :class:`~fft_convolution_tpu_torch.serving.CudaTwoStageConvolver` — kernel B2
 * :class:`~fft_convolution_tpu_torch.serving.CudaCrossfadeConvolver` — kernel B3
 * :class:`~fft_convolution_tpu_torch.serving.CudaStreamingConvolver` — kernel B4
+* :class:`~fft_convolution_tpu_torch.api_farm.ReverbFarm` — many voices with
+  long IRs on one device, big tail on kernel B5
 """
 
 from .api import Convolution, FFTConvolver
@@ -30,6 +33,7 @@ _LAZY = {
     "CudaTwoStageConvolver": "serving",
     "CudaCrossfadeConvolver": "serving",
     "CudaStreamingConvolver": "serving",
+    "ReverbFarm": "api_farm",
 }
 
 __all__ = ["Convolution", "FFTConvolver", *_LAZY]

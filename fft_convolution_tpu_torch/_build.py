@@ -40,6 +40,9 @@ _SIGNATURES = {
     # rows, splits; stream
     "fdl_b4_stream": [_P] * 9 + [_I] * 6 + [_P],
     "fdl_b4p_stream": [_P] * 9 + [_I] * 6 + [_P],
+    # ring, table, specs, convs, pre; lanes, n, q, T; stream
+    "fdl_b5_step": [_P] * 5 + [_I] * 4 + [_P],
+    "fdl_b5p_step": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,0 +1,208 @@
+"""ReverbFarm — the many-voice serving engine, a stateful wrapper over
+:mod:`.parallel.farm2` (counterpart of ``fft_convolution_tpu/api_farm.py``).
+
+V two-stage voices with distinct long IRs are batched on one device: the
+head and tail0 stages as one combined causal convolution along the block
+axis (its kernel meta-spectra cached per call length), the big tail on
+kernel B5 (:mod:`.ops.cuda_farm_mac`).  The contract mirrors the per-voice
+``TwoStageFFTConvolver`` where it can: ``process`` streams audio, ``update``
+is the batched RT-safe IR swap (``update_extension`` semantics, at full
+stage capacity), ``reset`` clears the input state and keeps the IR tables,
+``snapshot``/``restore``/``clone`` copy the state.  The farm-specific
+constraint: ``process`` takes whole tail periods.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops import cuda_farm_mac
+from .ops.fft import next_power_of_two
+from .parallel import farm2
+
+# The JAX package's transform tiers; they count TPU matrix-unit passes
+PRECISIONS = ("highest", "high", "default", "bf16")
+
+
+def _check_precision(name: str, what: str) -> None:
+    if name != "auto" and name not in PRECISIONS:
+        raise ValueError(f"{what} {name!r} not one of {sorted(PRECISIONS)} (or 'auto')")
+
+
+class ReverbFarm:
+    """V-voice two-stage convolution farm on one device.
+
+    Parameters
+    ----------
+    irs : ``[V, ir_len]`` float array or tensor, one impulse response per
+        voice.
+    block_size : head block size in samples (a power of two).
+    max_response_length : IR capacity per voice; ``update`` accepts any
+        length up to it.  It must exceed two tail blocks: the short-IR farm
+        is not ported yet (ROADMAP A7) and raises ``NotImplementedError``.
+    tail_dtype : ``torch.float32`` (default) or ``torch.bfloat16``: bf16
+        pairs for the big tail's ring and table, half the bytes kernel B5
+        reads, with ~1e-3 relative error on the tail contribution.
+    tail_mac : ``"auto"`` only: kernel B5 for a farm on a CUDA device, its
+        plain PyTorch version on the CPU.  The step is the attribute
+        ``_step``; setting it to ``cuda_farm_mac.phased_step_plain`` runs
+        the plain version on the card.
+    dft_precision, tail_dft_precision : accepted and checked for the JAX
+        package's names (``"auto"``, ``"highest"``, ``"high"``,
+        ``"default"``, ``"bf16"``).  Those tiers count a TPU's matrix-unit
+        passes; here every transform is a float32 ``torch.fft`` whatever
+        the name.
+    mesh : not ported (ROADMAP A11); anything but None raises
+        ``NotImplementedError``.
+    hbm_budget_bytes : the eager capacity guard of
+        :func:`.parallel.farm2.farm2_init`: ``"auto"`` (the CUDA device's
+        free memory; no check on the CPU), a byte budget, or None.
+    device : where the farm lives (default: where ``irs`` is, the CPU for
+        an array).
+    """
+
+    def __init__(self, irs, block_size: int, max_response_length: int, *,
+                 tail_dtype: torch.dtype = torch.float32, tail_mac: str = "auto",
+                 tail_dft_precision: str = "auto", dft_precision: str = "auto",
+                 mesh=None, hbm_budget_bytes="auto", device=None):
+        if mesh is not None:
+            raise NotImplementedError("ReverbFarm(mesh=...) is not ported yet (ROADMAP A11)")
+        if tail_mac != "auto":
+            raise ValueError(f"tail_mac must be 'auto' (kernel B5 on a CUDA device, its "
+                             f"plain version on the CPU), got {tail_mac!r}")
+        _check_precision(dft_precision, "dft_precision")
+        _check_precision(tail_dft_precision, "tail_dft_precision")
+        irs = torch.as_tensor(irs, dtype=torch.float32, device=device)
+        self.cfg, self.state = farm2.farm2_init(
+            irs, block_size, max_response_length, tail_dtype=tail_dtype,
+            hbm_budget_bytes=hbm_budget_bytes)
+        self.device = irs.device
+        self.voices = irs.shape[0]
+        self.block_size = self.cfg.head_block
+        self.max_response_length = max_response_length
+        self.max_blocks_per_call = farm2.max_blocks_per_call(self.cfg.period,
+                                                              self.cfg.tail.seg_count)
+        self._step = (cuda_farm_mac.phased_step_packed if tail_dtype == torch.bfloat16
+                      else cuda_farm_mac.phased_step)
+        # head-kernel meta-spectra per meta length m, with the call length
+        # that built them: input-independent between IR updates
+        self._khat_cache: dict[int, tuple[int, torch.Tensor]] = {}
+
+    @property
+    def period(self) -> int:
+        """Head blocks per tail period: ``process`` length granularity."""
+        return self.cfg.period
+
+    @property
+    def tail_block(self) -> int:
+        return self.cfg.tail_block
+
+    def process(self, blocks) -> torch.Tensor:
+        """Stream ``[T, V, block_size] -> [T, V, block_size]``, a tensor on
+        the farm's device.  ``T`` must be a positive multiple of ``period``
+        and at most ``max_blocks_per_call`` (split longer streams into
+        consecutive calls)."""
+        x = torch.as_tensor(blocks, dtype=torch.float32, device=self.device)
+        t = x.shape[0]
+        if x.ndim != 3 or tuple(x.shape[1:]) != (self.voices, self.block_size):
+            raise ValueError(f"expected [T, {self.voices}, {self.block_size}] blocks, "
+                             f"got {tuple(x.shape)}")
+        if t == 0 or t % self.period != 0:
+            raise ValueError(
+                f"T={t} must be a positive multiple of the tail period "
+                f"({self.period} blocks) — the aligned farm consumes whole tail periods")
+        if t > self.max_blocks_per_call:
+            raise ValueError(
+                f"T={t} exceeds the farm's per-call ceiling of "
+                f"{self.max_blocks_per_call} blocks "
+                f"({self.max_blocks_per_call // self.period} tail periods) — split the "
+                "stream into consecutive process() calls")
+        m = next_power_of_two(2 * self.cfg.head.seg_count - 1 + t)
+        if m not in self._khat_cache:
+            self._khat_cache[m] = (t, farm2.farm2_head_khat(self.cfg, self.state, t))
+        return farm2.farm2_stream(self.cfg, self.state, x, self._step,
+                                  head_khat=self._khat_cache[m][1])
+
+    def _check_irs(self, new_irs, count: int) -> torch.Tensor:
+        new_irs = torch.as_tensor(new_irs, dtype=torch.float32, device=self.device)
+        if new_irs.ndim != 2 or new_irs.shape[0] != count:
+            raise ValueError(f"expected [{count}, L] new responses, got "
+                             f"{tuple(new_irs.shape)}")
+        if new_irs.shape[1] > self.max_response_length:
+            raise ValueError(f"new responses ({new_irs.shape[1]}) exceed the farm's "
+                             f"response capacity ({self.max_response_length})")
+        return new_irs
+
+    def update(self, new_irs) -> None:
+        """Batched RT-safe IR swap at a period boundary: keeps every voice's
+        input history, zeroes pending tail outputs
+        (``TwoStageFFTConvolver.update_extension`` semantics per voice; the
+        reference ``update`` is ``todo!()``, ``src/fft_convolver.rs:408``)."""
+        farm2.farm2_update(self.cfg, self.state, self._check_irs(new_irs, self.voices))
+        self._khat_cache.clear()  # built from the old tables
+
+    def update_voice(self, voice: int, new_ir) -> None:
+        """Per-voice RT-safe IR swap (:meth:`update_voices` of one voice)."""
+        self.update_voices([voice], torch.as_tensor(new_ir, dtype=torch.float32)[None])
+
+    def update_voices(self, voice_idx, new_irs) -> None:
+        """RT-safe IR swap for a subset of voices at a period boundary
+        (:func:`.parallel.farm2.farm2_update_voices`): only the touched
+        voices' tables and pending rows are rewritten and their cached head
+        meta-spectra recomputed; the other voices continue bit-identically.
+        All ``V`` voices at once take :meth:`update`."""
+        idx = np.asarray(voice_idx, np.int64).reshape(-1)
+        new_irs = self._check_irs(new_irs, idx.size)
+        if idx.size == 0:
+            return
+        if len(np.unique(idx)) != idx.size:
+            raise ValueError("voice_idx must be distinct")
+        if idx.min() < 0 or idx.max() >= self.voices:
+            raise ValueError(f"voice_idx out of range [0, {self.voices})")
+        if idx.size == self.voices:
+            full = torch.empty_like(new_irs)
+            full[torch.from_numpy(idx).to(self.device)] = new_irs
+            self.update(full)
+            return
+        farm2.farm2_update_voices(self.cfg, self.state, idx, new_irs)
+        vidx = torch.from_numpy(idx).to(self.device)
+        patched = {}
+        for m, (t, kh) in self._khat_cache.items():
+            # a copy (a clone may share the cached tensor) with the same
+            # strides: the head's inverse transform takes another path for
+            # another layout, and untouched voices must stay bit-identical
+            kh = kh.clone()
+            kh[vidx] = farm2.farm2_head_khat_voices(self.cfg, self.state, t, vidx)
+            patched[m] = (t, kh)
+        self._khat_cache = patched
+
+    def reset(self) -> None:
+        """Clear all input state; keep the IR tables (``FFTConvolver::reset``
+        semantics, ``src/fft_convolver.rs:296``)."""
+        st = self.state
+        for stage in (st.head, st.tail0):
+            for buf in (stage.segments, stage.overlap, stage.input_buffer,
+                        stage.pre_multiplied):
+                buf.zero_()
+            stage.current = stage.input_fill = 0
+        for buf in (st.tail.ring, st.tail.overlap, st.tail.pre, st.hist, st.tail_output,
+                    st.tail_precalc):
+            buf.zero_()
+        st.tail.q = 0
+        st.suppress.fill_(False)
+
+    # --- Clone surface (reference `Clone`) ---------------------------------
+    def snapshot(self) -> farm2.Farm2State:
+        return self.state.clone()
+
+    def restore(self, snap: farm2.Farm2State) -> None:
+        self.state = snap.clone()
+        self._khat_cache.clear()  # the snapshot may hold other IR tables
+
+    def clone(self) -> "ReverbFarm":
+        c = object.__new__(ReverbFarm)
+        c.__dict__.update(self.__dict__)
+        c.state = self.snapshot()
+        c._khat_cache = dict(self._khat_cache)  # entries are never written in place
+        return c

@@ -1,4 +1,4 @@
-// Shared pieces of the frequency-delay-line kernels (B1, B1p, B2, B3, B4).
+// Shared pieces of the frequency-delay-line kernels (B1, B1p, B2, B3, B4, B5).
 //
 // Spectra are complex64 rows of B+1 bins (float2, interleaved re/im), the
 // layout torch.fft.rfft gives for a 2B-point real transform.  The bf16

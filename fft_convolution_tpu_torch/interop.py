@@ -3,8 +3,9 @@
 Turns the JAX package's engine and kernel states — ``UniformState``,
 ``TwoStageState``, ``CrossfaderState``, and the Pallas kernels'
 ``PallasFDLState`` / ``PallasFDLConsts`` (and their packed forms),
-``FusedHeadState`` / ``FusedHeadConsts``, ``XfadeState`` / ``XfadeConsts``
-and ``StreamState`` / ``StreamConsts`` / ``StreamConstsPacked`` — into this
+``FusedHeadState`` / ``FusedHeadConsts``, ``XfadeState`` / ``XfadeConsts``,
+``StreamState`` / ``StreamConsts`` / ``StreamConstsPacked``, and the reverb
+farm's ``parallel.farm2`` state — into this
 package's states on a given device, so both packages can run on from the
 same mid-stream state.  Fields are read through ``numpy.asarray``, so any
 object with those attribute names works; JAX itself is not imported.
@@ -27,6 +28,7 @@ from .ops.cuda_engine import FDLConsts, FDLState, to_bf16
 from .ops.cuda_stream import StreamConsts, StreamState
 from .ops.cuda_two_stage import FusedConsts, FusedState
 from .ops.fft import packed_to_complex, twiddles
+from .parallel.farm2 import Farm2State, TailState
 
 
 def _f32(a, device) -> torch.Tensor:
@@ -143,6 +145,43 @@ def crossfader_state(js) -> CrossfaderState:
                            counter=_int(js.counter),
                            mix_value=np.float32(np.asarray(js.mix_value)),
                            step=np.float32(np.asarray(js.step)))
+
+
+def _fused_spectra(a, n_rows: int, v: int, device) -> torch.Tensor:
+    """A planes-outer fused tail leaf ``[2, R, V*B]`` (f32) or ``[R, V*B]``
+    (packed bf16 words) -> its first ``n_rows`` rows as ``complex64
+    [n_rows, V, B+1]`` or bf16 pairs ``[n_rows, V, B+1, 2]``."""
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        return _words(a[:n_rows].reshape(n_rows, v, -1), device)
+    planes = a[:, :n_rows].reshape(2, n_rows, v, -1)
+    return _spectra(np.moveaxis(planes, 0, 2), device)
+
+
+def farm_state(jcfg, jstate, device="cpu") -> Farm2State:
+    """A JAX ``parallel.farm2`` state (with its ``TwoStageConfig``) as this
+    package's :class:`~.parallel.farm2.Farm2State`: the voice-stacked head
+    and tail0 stages as they are; the planes-outer fused tail ring and the
+    first ``N`` rows of the doubled table as ``[N, V, B+1]`` bins (packed
+    words as exact bf16 pairs); the head history from the two period-buffer
+    planes it is kept in there; ``precalc_pos == 1`` as the suppress flags."""
+    tail = jstate.tail
+    v, b, p = np.asarray(jstate.tail_output).shape[0], jcfg.head_block, jcfg.period
+    n, n_t = jcfg.head.seg_count, jcfg.tail.seg_count
+    hist = np.stack([np.asarray(jstate.tail_precalc0).reshape(v, p, b)[:, :n - 1],
+                     np.asarray(jstate.tail_output0).reshape(v, p, b)[:, :n - 1]], axis=2)
+    pre = np.asarray(tail.pre_multiplied).reshape(2, v, -1).transpose(1, 0, 2)
+    return Farm2State(
+        head=uniform_state(jstate.head, device), tail0=uniform_state(jstate.tail0, device),
+        tail=TailState(ring=_fused_spectra(tail.segments, n_t, v, device),
+                       table=_fused_spectra(tail.segments_ir, n_t, v, device),
+                       overlap=_f32(tail.overlap, device),
+                       pre=_spectra(pre, device), q=_int(tail.current)),
+        hist=_spectra(hist, device),
+        tail_output=_f32(jstate.tail_output, device),
+        tail_precalc=_f32(jstate.tail_precalc, device),
+        suppress=torch.from_numpy(np.asarray(jstate.precalc_pos) == 1),
+    )
 
 
 def stream(jconsts, jstate, device="cpu") -> tuple[StreamConsts, StreamState]:

@@ -52,6 +52,70 @@ def ir_to_spectra(ir_padded: torch.Tensor, block_size: int,
     return torch.fft.rfft(segs, n=2 * block_size)
 
 
+def rdft_block(x: torch.Tensor, fft_size: int) -> torch.Tensor:
+    """Forward real DFT of each block (last axis) zero-padded to
+    ``fft_size``; leading axes batch.  Counterpart of ``rdft_block``
+    (``fft_convolution_tpu/ops/fft.py:655``): ``complex64 [...,
+    fft_size // 2 + 1]``."""
+    if x.shape[-1] > fft_size:
+        raise ValueError(f"input length {x.shape[-1]} exceeds fft_size {fft_size}")
+    return torch.fft.rfft(x.to(torch.float32), n=fft_size)
+
+
+def irdft_block(spec: torch.Tensor, fft_size: int) -> torch.Tensor:
+    """Inverse real DFT with ``1/n`` normalisation, leading axes batched —
+    counterpart of ``irdft_block`` and ``irdft_pair``
+    (``fft_convolution_tpu/ops/fft.py:688,697``; the pair form exists there
+    only for a planes-outer layout, which complex bins do not have)."""
+    return torch.fft.irfft(spec, n=fft_size)
+
+
+def causal_conv_khat(kern: torch.Tensor, m: int) -> torch.Tensor:
+    """The input-independent half of :func:`causal_conv_time`: the kernel
+    table's DFT along the block axis (dim -2), zero-padded to ``m``
+    meta-bins — counterpart of ``causal_conv_khat``
+    (``fft_convolution_tpu/ops/fft.py:424``).  ``kern`` is ``complex64
+    [..., N, B+1]``; returns ``complex64 [..., m, B+1]``.  Precompute it
+    once per (table, m) and pass it as ``kern_hat=``."""
+    return torch.fft.fft(kern, n=m, dim=-2)
+
+
+def causal_conv_time(ext: torch.Tensor, kern: torch.Tensor, t_out: int,
+                     kern_hat: torch.Tensor | None = None, m: int | None = None,
+                     row0: int | None = None) -> torch.Tensor:
+    """``out[t] = sum_i kern[i] * ext[row0 + t - i]``: the frequency-delay
+    line's MAC over a whole stream as one circular convolution along the
+    block axis, by a complex DFT of length ``m`` (overlap-save at the meta
+    level) — counterpart of ``causal_conv_time``
+    (``fft_convolution_tpu/ops/fft.py:441``).
+
+    ``ext``: ``complex64 [..., Lt, B+1]`` (block history, then the new
+    blocks); ``kern``: ``complex64 [..., N, B+1]``.  Each bin is one complex
+    sequence along the block axis, so the product of the two meta-spectra
+    is the whole spectral product; the JAX package's lane-0 (DC/Nyquist)
+    correction exists only for its packed halfcomplex layout and has no
+    counterpart here.
+
+    ``kern_hat``: :func:`causal_conv_khat` of ``kern`` at this ``m``.
+    ``m``: meta-DFT size, a power of two ``>= Lt`` (default the smallest);
+    callers whose rows would read wrapped indices size it so the reads land
+    in the zero pad.  ``row0``: first output row (default ``N - 1``, the
+    full-history position).  Returns ``complex64 [..., t_out, B+1]``.
+    """
+    lt, n = ext.shape[-2], kern.shape[-2]
+    if m is None:
+        m = next_power_of_two(lt)
+    elif m < lt or m & (m - 1):
+        raise ValueError(f"m={m} must be a power of two >= len(ext)={lt}")
+    khat = causal_conv_khat(kern, m) if kern_hat is None else kern_hat
+    if khat.shape[-2] != m:
+        raise ValueError(f"kern_hat was built for m={khat.shape[-2]} meta-bins "
+                         f"but this call needs m={m}")
+    r0 = n - 1 if row0 is None else row0
+    out = torch.fft.ifft(torch.fft.fft(ext, n=m, dim=-2) * khat, dim=-2)
+    return out[..., r0:r0 + t_out, :]
+
+
 def generate_sinusoid(num_samples: int, freq: float, sample_rate: float,
                       gain: float) -> np.ndarray:
     """Test-signal generator mirroring ``examples/util/mod.rs:7-19`` /

@@ -1,0 +1,123 @@
+"""Voice-stacked uniform stages — counterpart of the single-device part of
+``fft_convolution_tpu/parallel/farm.py``.
+
+A farm stage holds V uniform engines that share one :class:`UniformConfig`
+and advance in lockstep: the tensors of :class:`UniformState` carry a
+leading voice axis (``segments``/``segments_ir`` ``complex64 [V, N, B+1]``,
+``overlap``/``input_buffer`` ``[V, B]``, ``pre_multiplied`` ``[V, B+1]``),
+and the scalars (``current``, ``input_fill``, ``active_segs``) are one host
+int for all voices.  :mod:`.farm2` builds its head and tail0 stages here.
+
+The uniform farm's batched stream (``farm_khat``, ``farm_stream``) and its
+mesh placement are not ported: they need ``uniform.stream_conv_farm``
+(ROADMAP A7) and a device mesh (A11).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models import uniform
+from ..ops.fft import rdft_block
+from ..ops.spectral import fdl_mac
+
+
+def device_budget(device: torch.device) -> int | None:
+    """Bytes the guards of :func:`farm_init` and ``farm2_init`` allow under
+    ``"auto"``: the CUDA device's free memory at construction, or None (no
+    check) for a host device, whose memory is the machine's."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(device)[0]
+
+
+def farm_bytes_per_voice(block_size: int, max_response_length: int) -> int:
+    """Device bytes per uniform-farm voice, from the stage's shapes: the
+    input-spectra ring and the IR table (``complex64 [N, B+1]`` each), one
+    table-sized temporary in :func:`farm_step`'s MAC (the products before
+    their sum), and the per-voice buffers."""
+    cfg = uniform.make_config(block_size, max_response_length)
+    table = cfg.seg_count * cfg.bins * 8
+    return 3 * table + 2 * cfg.block_size * 4 + cfg.bins * 8
+
+
+def stage_spectra(cfg: uniform.UniformConfig, irs_padded: torch.Tensor) -> torch.Tensor:
+    """``[K, seg_count * B]`` zero-padded IRs -> ``complex64 [K, N, B+1]``
+    partition spectra (``ir_to_spectra`` batched over voices)."""
+    k = irs_padded.shape[0]
+    return rdft_block(irs_padded.reshape(k, cfg.seg_count, cfg.block_size), cfg.fft_size)
+
+
+def farm_init(irs, block_size: int, max_response_length: int,
+              device=None) -> tuple[uniform.UniformConfig, uniform.UniformState]:
+    """V voices from ``irs [V, ir_len]`` (``farm_init``,
+    ``fft_convolution_tpu/parallel/farm.py:47``); returns the shared config
+    and the voice-stacked state, on ``device`` (default: where ``irs`` is).
+
+    Raises ``ValueError`` when the estimate (:func:`farm_bytes_per_voice`
+    x V) exceeds the CUDA device's free memory; a long-IR farm should use
+    the two-stage ``ReverbFarm`` instead."""
+    irs = torch.as_tensor(irs, dtype=torch.float32, device=device)
+    v = irs.shape[0]
+    budget = device_budget(irs.device)
+    est = v * farm_bytes_per_voice(block_size, max_response_length)
+    if budget is not None and est > budget:
+        raise ValueError(
+            f"uniform farm of {v} voices x {max_response_length} samples needs "
+            f"~{est / 1e9:.2f} GB > the {budget / 1e9:.2f} GB free on {irs.device}. "
+            "Long-IR farms should use the two-stage ReverbFarm (parallel/farm2).")
+    if max_response_length < irs.shape[-1]:
+        raise ValueError(
+            "max_response_length must be at least the length of the initial "
+            "impulse response"
+        )
+    cfg = uniform.make_config(block_size, max_response_length)
+    total = cfg.seg_count * cfg.block_size
+    spec = (v, cfg.seg_count, cfg.bins)
+    state = uniform.UniformState(
+        segments=torch.zeros(spec, dtype=torch.complex64, device=irs.device),
+        segments_ir=torch.zeros(spec, dtype=torch.complex64, device=irs.device),
+        overlap=torch.zeros((v, cfg.block_size), device=irs.device),
+        input_buffer=torch.zeros((v, cfg.block_size), device=irs.device),
+        pre_multiplied=torch.zeros((v, cfg.bins), dtype=torch.complex64,
+                                   device=irs.device),
+        current=0, input_fill=0, active_segs=0,
+    )
+    farm_update(cfg, state, torch.nn.functional.pad(irs, (0, total - irs.shape[-1])),
+                cfg.ir_len)
+    return cfg, state
+
+
+def farm_update(cfg: uniform.UniformConfig, state: uniform.UniformState,
+                irs_padded: torch.Tensor, new_len: int) -> None:
+    """RT-safe IR swap for all voices at once (``farm_update``,
+    ``fft_convolution_tpu/parallel/farm.py:92``), in place: ``irs_padded``
+    is ``[V, seg_count * B]``; ``new_len`` is one length for every voice
+    (the active count is a lockstep host int, where the JAX package takes a
+    ``[V]`` array)."""
+    state.segments_ir = stage_spectra(cfg, irs_padded)
+    state.overlap.zero_()
+    state.pre_multiplied.zero_()
+    state.active_segs = -(-new_len // cfg.block_size)
+
+
+def farm_step(cfg: uniform.UniformConfig, state: uniform.UniformState,
+              x: torch.Tensor) -> torch.Tensor:
+    """One block for every voice (``farm_step``,
+    ``fft_convolution_tpu/parallel/farm.py:98``): ``x [V, B] -> y [V, B]``,
+    :func:`uniform.process_block` batched over the voice axis."""
+    b, cur = cfg.block_size, state.current
+    if state.active_segs == 0:
+        return torch.zeros_like(x)
+    spec = rdft_block(x, cfg.fft_size)
+    state.segments[:, cur] = spec
+    # fdl_mac indexes the partition axis first: hand it voice-inner views
+    state.pre_multiplied = fdl_mac(state.segments.transpose(0, 1),
+                                   state.segments_ir.transpose(0, 1), cur,
+                                   state.active_segs)
+    out = torch.fft.irfft(state.pre_multiplied + spec * state.segments_ir[:, 0],
+                          n=cfg.fft_size)
+    y = out[:, :b] + state.overlap
+    state.overlap = out[:, b:].contiguous()
+    state.current = cur - 1 if cur > 0 else state.active_segs - 1
+    return y

@@ -1,0 +1,400 @@
+"""Two-stage reverb farm: V voices with distinct long IRs on one device —
+counterpart of ``fft_convolution_tpu/parallel/farm2.py`` (single device).
+
+The stream is the aligned two-stage decomposition
+``y = head(x) + delay_1(tail0(x)) + delay_2(tail(x))`` in whole tail periods:
+
+* **head + tail0** (block ``B``): voice-stacked uniform stages
+  (:mod:`.farm`) that share the head's ring.  With the big tail present the
+  period is exactly the head's segment count ``n``, so tail0's one-period
+  delay is a shift of ``n`` segments, and one combined ``2n``-segment
+  kernel (:func:`_combined_head_kernel`) gives ``head + delay_1(tail0)`` in
+  one causal convolution along the block axis (:func:`..ops.fft.
+  causal_conv_time`, ``torch.fft``).  The ``n - 1`` input spectra before
+  the ring are the state's own ``hist`` field.
+* **big tail** (block ``tb``): a fused ring and table of ``[N, V, tb+1]``
+  bins (bf16 pairs with ``tail_dtype=torch.bfloat16``) stepped by kernel B5
+  (:mod:`..ops.cuda_farm_mac`) with a phase scalar ``q``: the ring rows stay
+  where they are and the table window moves, so a call reads the ring and
+  the table once and writes T ring rows.  The tail's forward and inverse
+  transforms run on ``torch.fft`` around the kernel, as the JAX package runs
+  them around its Pallas kernel.
+
+The tail's segment count is padded to a multiple of 8 (live-but-silent zero
+segments, ``src/fft_convolver.rs:111-118``), so the phase modulus and the
+per-call ceiling equal the JAX package's and :func:`..interop.farm_state`
+maps its states row for row.  State tensors are updated in place; the
+lockstep scalars are host ints.  Updates keep every ring full at stage
+capacity (``PARITY.md`` divergence 5).
+
+Not ported: the short-IR farm (``cfg.tail is None``: it streams through
+``two_stage.process_stream_aligned``, ROADMAP A7) and the mesh forms
+(``farm2_pspecs``, ``farm2_shard``, ``farm2_stream_sharded``; A11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from ..models import uniform
+from ..models.two_stage import TwoStageConfig, compute_tail_block_size
+from ..ops import cuda_farm_mac
+from ..ops.cuda_engine import to_bf16
+from ..ops.fft import (causal_conv_khat, causal_conv_time, irdft_block,
+                       next_power_of_two, rdft_block)
+from . import farm
+
+TAIL_DTYPES = (torch.float32, torch.bfloat16)
+_SUB = 8  # tail segments are padded to a multiple of this (see the module note)
+_CHUNK = 8  # voices per tail-table build: bounds its transient
+
+
+@dataclasses.dataclass
+class TailState:
+    """The big tail, voices fused on the lane axis."""
+
+    ring: torch.Tensor     # phased input spectra [N, V, tb+1]: c64, or bf16 [.., 2]
+    table: torch.Tensor    # IR partition spectra, same shape and dtype
+    overlap: torch.Tensor  # f32 [V, tb]
+    pre: torch.Tensor      # c64 [V, tb+1]: conv[T-1] minus the newest block's term
+    q: int                 # phase, in [0, N)
+
+    def clone(self) -> "TailState":
+        return TailState(self.ring.clone(), self.table.clone(), self.overlap.clone(),
+                         self.pre.clone(), self.q)
+
+
+@dataclasses.dataclass
+class Farm2State:
+    head: uniform.UniformState   # voice-stacked; its ring feeds head and tail0
+    tail0: uniform.UniformState  # voice-stacked; only its table is read
+    tail: TailState
+    hist: torch.Tensor           # c64 [V, n-1, B+1]: blocks -(2n-1)..-(n+1)
+    tail_output: torch.Tensor    # f32 [V, tb]: pending big-tail outputs
+    tail_precalc: torch.Tensor   # f32 [V, tb]
+    suppress: torch.Tensor       # host bool [V]: updated right before this call
+
+    def clone(self) -> "Farm2State":
+        return Farm2State(self.head.clone(), self.tail0.clone(), self.tail.clone(),
+                          self.hist.clone(), self.tail_output.clone(),
+                          self.tail_precalc.clone(), self.suppress.clone())
+
+
+def _tail_segments(block_size: int, max_response_length: int) -> tuple[int, int]:
+    """``(tb, N)``: the tail block and the big tail's padded segment count."""
+    tb = compute_tail_block_size(block_size, max_response_length)
+    n_t = -(-max(max_response_length - 2 * tb, 0) // tb)
+    return tb, -(-n_t // _SUB) * _SUB
+
+
+def farm2_bytes_per_voice(block: int, ir_len: int, t_blocks: int,
+                          tail_item: int = 8) -> int:
+    """Device bytes per voice from the port's shapes: the capacity model
+    behind :func:`farm2_init`'s guard (``farm2_bytes_per_voice``,
+    ``fft_convolution_tpu/parallel/farm2.py:178``).
+
+    State: head and tail0 stages (ring and table ``complex64 [n, B+1]``
+    each, buffers), ``hist``, the big tail's ring and single table
+    (``N x (tb+1)`` bins of ``tail_item`` bytes: 8 complex64, 4 bf16), its
+    pre and overlap, the two pending period buffers, and the cached head
+    kernel meta-spectra ``[m, B+1]`` with ``m = npo2(2n - 1 + t_blocks)``.
+    Transients of a ``t_blocks`` call: the head's causal convolution (ext,
+    its meta-spectra, their product and its inverse: four ``[m, B+1]``
+    complex64 arrays), the tail's spectra and sums (``T`` rows of ``tb+1``
+    complex64 each) and inverse (``T x 2tb`` f32).  Kernel B5 keeps no
+    ring-sized temporary."""
+    tb, n_t = _tail_segments(block, ir_len)
+    n = tb // block
+    bins, tbins = block + 1, tb + 1
+
+    def stage(rows: int, width: int, nb: int, item: int = 8) -> int:
+        return 2 * rows * nb * item + 2 * width * 4 + nb * 8
+
+    m = next_power_of_two(2 * n - 1 + t_blocks)
+    t_tail = -(-t_blocks * block // tb)
+    state = (2 * stage(n, block, bins) + stage(n_t, tb, tbins, tail_item)
+             + (n - 1) * bins * 8 + 2 * tb * 4 + m * bins * 8)
+    transients = 4 * m * bins * 8 + t_tail * (2 * tbins * 8 + 2 * tb * 4)
+    return state + transients
+
+
+def _stage_slice(irs: torch.Tensor, lo: int, cap: int, total: int) -> torch.Tensor:
+    """``irs[:, lo:lo + cap]`` zero-padded to ``total`` samples."""
+    sl = irs[:, lo:lo + cap]
+    return torch.nn.functional.pad(sl, (0, total - sl.shape[1]))
+
+
+def _write_tail_table(cfg: TwoStageConfig, table: torch.Tensor, irs: torch.Tensor,
+                      voices: torch.Tensor) -> None:
+    """Table columns of ``voices`` from ``irs [K, L]`` (full-capacity
+    slices), in chunks of voices so the transient stays one chunk's
+    spectra."""
+    tcfg, tb = cfg.tail, cfg.tail_block
+    total = tcfg.seg_count * tb
+    for c0 in range(0, irs.shape[0], _CHUNK):
+        piece = _stage_slice(irs[c0:c0 + _CHUNK], 2 * tb, tcfg.ir_len, total)
+        spec = farm.stage_spectra(tcfg, piece).transpose(0, 1)  # [N, c, tb+1]
+        table[:, voices[c0:c0 + _CHUNK]] = spec if table.is_complex() else to_bf16(spec)
+
+
+def farm2_init(irs, block_size: int, max_response_length: int,
+               tail_dtype: torch.dtype = torch.float32, hbm_budget_bytes="auto",
+               device=None) -> tuple[TwoStageConfig, Farm2State]:
+    """V two-stage voices from ``irs [V, ir_len]`` (``farm2_init``,
+    ``fft_convolution_tpu/parallel/farm2.py:231``) on ``device`` (default:
+    where ``irs`` is).  ``tail_dtype=torch.bfloat16`` stores the big tail's
+    ring and table as bf16 pairs (half the bytes kernel B5 reads; arithmetic
+    stays float32).
+
+    ``hbm_budget_bytes``: the eager capacity guard.  A farm whose estimate
+    (:func:`farm2_bytes_per_voice` x V, at the largest call the farm takes)
+    exceeds the budget raises ``ValueError`` at construction instead of
+    running out of memory later.  ``"auto"`` is the CUDA device's free
+    memory, and no check on the CPU; a number pins it; None disables it.
+    """
+    irs = torch.as_tensor(irs, dtype=torch.float32, device=device)
+    if irs.ndim != 2:
+        raise ValueError("irs must be [voices, ir_len]")
+    v = irs.shape[0]
+    if max_response_length < irs.shape[1]:
+        raise ValueError(
+            "max_response_length must be at least the length of the initial "
+            "impulse response"
+        )
+    if block_size < 1 or block_size & (block_size - 1):
+        raise ValueError(f"block_size must be a power of two, got {block_size}")
+    if tail_dtype not in TAIL_DTYPES:
+        raise ValueError(f"tail_dtype must be one of {TAIL_DTYPES}, got {tail_dtype}")
+    tb, n_t = _tail_segments(block_size, max_response_length)
+    if max_response_length <= 2 * tb:
+        raise NotImplementedError(
+            f"the short-IR farm (max_response_length {max_response_length} <= 2 x "
+            f"tail block {tb}) streams through two_stage.process_stream_aligned, "
+            "which is not ported yet (ROADMAP A7)")
+    if hbm_budget_bytes == "auto":
+        hbm_budget_bytes = farm.device_budget(irs.device)
+    if hbm_budget_bytes is not None:
+        tail_item = 4 if tail_dtype == torch.bfloat16 else 8
+        per_voice = farm2_bytes_per_voice(block_size, max_response_length,
+                                          max_blocks_per_call(tb // block_size, n_t),
+                                          tail_item)
+        est = v * per_voice
+        if est > hbm_budget_bytes:
+            fit = max(1, int(hbm_budget_bytes // per_voice))
+            raise ValueError(
+                f"farm of {v} voices x {max_response_length} samples needs "
+                f"~{est / 1e9:.2f} GB (~{per_voice / 1e6:.1f} MB/voice incl. stream "
+                f"transients) > the {hbm_budget_bytes / 1e9:.2f} GB device budget — "
+                f"~{fit} voices fit this budget"
+                + ("" if tail_item == 4 else
+                   "; tail_dtype=torch.bfloat16 halves the tail ring and table")
+                + ". Pass hbm_budget_bytes=<bytes>/None to retune/disable this "
+                "check (farm2_bytes_per_voice is the model).")
+    dev = irs.device
+    head_cfg, head = farm.farm_init(_stage_slice(irs, 0, tb, tb), block_size, tb)
+    tail0_cfg, tail0 = farm.farm_init(_stage_slice(irs, tb, tb, tb), block_size, tb)
+    tail_cfg = uniform.make_config(tb, n_t * tb)
+    cfg = TwoStageConfig(head_block=block_size, tail_block=tb, head=head_cfg,
+                         tail0=tail0_cfg, tail=tail_cfg)
+    shape = (n_t, v, tb + 1)
+    if tail_dtype == torch.bfloat16:
+        table = torch.zeros(shape + (2,), dtype=torch.bfloat16, device=dev)
+    else:
+        table = torch.zeros(shape, dtype=torch.complex64, device=dev)
+    _write_tail_table(cfg, table, irs, torch.arange(v, device=dev))
+    tail = TailState(ring=torch.zeros_like(table), table=table,
+                     overlap=torch.zeros((v, tb), device=dev),
+                     pre=torch.zeros((v, tb + 1), dtype=torch.complex64, device=dev), q=0)
+    n = head_cfg.seg_count
+    state = Farm2State(
+        head=head, tail0=tail0, tail=tail,
+        hist=torch.zeros((v, n - 1, block_size + 1), dtype=torch.complex64, device=dev),
+        tail_output=torch.zeros((v, tb), device=dev),
+        tail_precalc=torch.zeros((v, tb), device=dev),
+        suppress=torch.zeros(v, dtype=torch.bool),
+    )
+    return cfg, state
+
+
+def max_blocks_per_call(period: int, tail_segments: int) -> int:
+    """The per-call ceiling in head blocks: ``min(N, 16)`` whole periods
+    (the phased core's bound, ``fft_convolution_tpu/api_farm.py:163-171``)."""
+    return min(tail_segments, cuda_farm_mac.MAX_BLOCKS) * period
+
+
+def farm2_update(cfg: TwoStageConfig, state: Farm2State, new_irs) -> None:
+    """Batched RT-safe IR swap for the whole farm, in place
+    (``farm2_update``, ``fft_convolution_tpu/parallel/farm2.py:356``):
+    every stage takes its slice of ``new_irs [V, L]`` zero-padded to full
+    stage capacity, so every ring stays full and each history block keeps
+    its true delay (outputs match per-voice engines updated with the
+    response zero-padded to capacity, ``PARITY.md`` divergence 5).  Input
+    history and phase are kept; pending tail outputs and ``hist`` are
+    zeroed, and every voice's next call suppresses its first period's tail0
+    contribution.  Call at a period boundary."""
+    tb = cfg.tail_block
+    new_irs = torch.as_tensor(new_irs, dtype=torch.float32, device=state.hist.device)
+    for scfg, stage, lo in ((cfg.head, state.head, 0), (cfg.tail0, state.tail0, tb)):
+        farm.farm_update(scfg, stage,
+                         _stage_slice(new_irs, lo, scfg.ir_len,
+                                      scfg.seg_count * scfg.block_size), scfg.ir_len)
+    _write_tail_table(cfg, state.tail.table, new_irs,
+                      torch.arange(new_irs.shape[0], device=new_irs.device))
+    state.tail.overlap.zero_()
+    state.tail.pre.zero_()
+    for buf in (state.hist, state.tail_output, state.tail_precalc):
+        buf.zero_()
+    state.suppress.fill_(True)
+
+
+def farm2_update_voices(cfg: TwoStageConfig, state: Farm2State, voice_idx,
+                        new_irs) -> None:
+    """:func:`farm2_update` for a subset of voices, in place
+    (``farm2_update_voices``, ``fft_convolution_tpu/parallel/farm2.py:491``):
+    only the touched voices' stage tables, tail table columns, pending rows
+    and suppress flags are written; every ring and the phase are untouched,
+    so the other voices continue bit-identically.  ``voice_idx``: ``[K]``
+    distinct indices (the caller checks); ``new_irs``: ``[K, L]``."""
+    dev = state.hist.device
+    tb = cfg.tail_block
+    idx = torch.as_tensor(voice_idx, dtype=torch.long, device=dev).reshape(-1)
+    new_irs = torch.as_tensor(new_irs, dtype=torch.float32, device=dev)
+    for scfg, stage, lo in ((cfg.head, state.head, 0), (cfg.tail0, state.tail0, tb)):
+        padded = _stage_slice(new_irs, lo, scfg.ir_len, scfg.seg_count * scfg.block_size)
+        stage.segments_ir[idx] = farm.stage_spectra(scfg, padded)
+        stage.overlap[idx] = 0.0
+        stage.pre_multiplied[idx] = 0.0
+    _write_tail_table(cfg, state.tail.table, new_irs, idx)
+    for buf in (state.tail.pre, state.tail.overlap, state.hist, state.tail_output,
+                state.tail_precalc):
+        buf[idx] = 0.0
+    state.suppress[idx.cpu()] = True
+
+
+def _tail_corr_phased_fused(cfg: uniform.UniformConfig, tail: TailState,
+                            blocks_rows: torch.Tensor, step: Callable) -> torch.Tensor:
+    """The big tail for ``blocks_rows [T, V, tb]`` (one tail block per
+    period): forward rDFT, the phased step ``step`` (kernel B5 or its plain
+    version), inverse rDFT and overlap-add — ``_tail_corr_phased_fused``
+    (``fft_convolution_tpu/parallel/farm2.py:666``).  Returns ``[T, V, tb]``."""
+    tb, n = cfg.block_size, cfg.seg_count
+    t = blocks_rows.shape[0]
+    if t > min(n, cuda_farm_mac.MAX_BLOCKS):
+        raise ValueError(f"the phased core takes at most min(N={n}, "
+                         f"{cuda_farm_mac.MAX_BLOCKS}) blocks per call, got {t}")
+    specs = rdft_block(blocks_rows, cfg.fft_size).contiguous()  # [T, V, tb+1]
+    convs, tail.pre = step(tail.ring, tail.table, specs, tail.q)
+    outs = irdft_block(convs, cfg.fft_size)                # [T, V, 2tb]
+    y = outs[:, :, :tb] + torch.cat([tail.overlap[None], outs[:-1, :, tb:]])
+    tail.overlap = outs[-1, :, tb:].contiguous()
+    tail.q = (tail.q + t) % n
+    return y
+
+
+def _combined_head_kernel(st_h: uniform.UniformState,
+                          st_t0: uniform.UniformState) -> torch.Tensor:
+    """The combined head+tail0 table ``[V, 2n, B+1]``: segment ``n + j`` is
+    tail0's segment ``j``, applied ``n`` blocks (one period) later
+    (``_combined_head_kernel``, ``fft_convolution_tpu/parallel/farm2.py:837``)."""
+    return torch.cat([st_h.segments_ir, st_t0.segments_ir], dim=1)
+
+
+def farm2_head_khat(cfg: TwoStageConfig, state: Farm2State, t: int) -> torch.Tensor:
+    """The combined head kernel's meta-spectra for ``t``-block calls
+    (``farm2_head_khat``, ``fft_convolution_tpu/parallel/farm2.py:855``):
+    input-independent between IR updates; valid for any call length with
+    the same ``npo2(2n - 1 + t)``."""
+    m = next_power_of_two(2 * cfg.head.seg_count - 1 + t)
+    return causal_conv_khat(_combined_head_kernel(state.head, state.tail0), m)
+
+
+def farm2_head_khat_voices(cfg: TwoStageConfig, state: Farm2State, t: int,
+                           voice_idx) -> torch.Tensor:
+    """The ``[K]``-voice rows of :func:`farm2_head_khat`
+    (``fft_convolution_tpu/parallel/farm2.py:872``)."""
+    idx = torch.as_tensor(voice_idx, dtype=torch.long, device=state.hist.device)
+    m = next_power_of_two(2 * cfg.head.seg_count - 1 + t)
+    kern = torch.cat([state.head.segments_ir[idx], state.tail0.segments_ir[idx]], dim=1)
+    return causal_conv_khat(kern, m)
+
+
+def _heads_state_out(st_h: uniform.UniformState, st_t0: uniform.UniformState,
+                     ext: torch.Tensor, outs: torch.Tensor, t: int, n: int,
+                     hist0: int) -> torch.Tensor:
+    """Exit state of the fused head path, in place (``_heads_state_out``,
+    ``fft_convolution_tpu/parallel/farm2.py:891``): the head ring rebuilt
+    from the last ``n`` blocks of ``ext`` (``ext[hist0 + j]`` is new block
+    ``j``), both stages' ``current`` and ``pre_multiplied``, the head
+    overlap.  tail0's ring and overlap stay untouched (dead in the farm).
+    Returns the next call's ``hist``."""
+    b = st_h.overlap.shape[-1]
+    cur = (st_h.current - t) % n
+    byd = ext[:, hist0 + t - n:hist0 + t].flip(1)        # blocks t-1 .. t-n
+    st_h.segments = byd.roll(cur + 1, dims=1)
+    st_h.pre_multiplied = (st_h.segments_ir[:, 1:] * byd[:, 1:]).sum(dim=1)
+    st_t0.pre_multiplied = (st_t0.segments_ir[:, 1:] * byd[:, 1:]).sum(dim=1)
+    st_h.current = st_t0.current = cur
+    st_h.overlap = outs[:, -1, b:].contiguous()
+    return ext[:, hist0 + t - 2 * n + 1:hist0 + t - n].contiguous()
+
+
+def _heads_fused(cfg: TwoStageConfig, st_h: uniform.UniformState,
+                 st_t0: uniform.UniformState, vx: torch.Tensor, hist: torch.Tensor,
+                 suppress: torch.Tensor, khat: torch.Tensor | None = None,
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``head + delay_1(tail0)`` for ``vx [V, T, B]`` through the combined
+    ``2n``-segment kernel (``_heads_fused``,
+    ``fft_convolution_tpu/parallel/farm2.py:931``).  Voices flagged in
+    ``suppress`` were updated right before this call: their first period
+    gets no tail0 contribution (the update zeroed their ``hist`` rows; a
+    small convolution of tail0's table with the ring removes the rest).
+    Returns ``(y [V, T, B], next hist)``."""
+    n, b, p = cfg.head.seg_count, cfg.head_block, cfg.period
+    v, t = vx.shape[:2]
+    specs = rdft_block(vx, 2 * b)                          # [V, T, B+1]
+    ring = st_h.segments.roll(-(st_h.current + 1), dims=1).flip(1)  # blocks -n..-1
+    ext = torch.cat([hist, ring, specs], dim=1)            # [V, 2n-1+T, B+1]
+    conv = causal_conv_time(ext, _combined_head_kernel(st_h, st_t0), t, kern_hat=khat)
+    if bool(suppress.any()):
+        ext_w = torch.cat([torch.zeros_like(ring[:, 1:]), ring], dim=1)  # [V, 2n-1, B+1]
+        w = causal_conv_time(ext_w, st_t0.segments_ir, p, m=2 * n)
+        conv[:, :p] -= w * suppress.to(conv.device)[:, None, None]
+    outs = irdft_block(conv, 2 * b)                        # [V, T, 2B]
+    y = outs[:, :, :b] + torch.cat([st_h.overlap[:, None], outs[:, :-1, b:]], dim=1)
+    return y, _heads_state_out(st_h, st_t0, ext, outs, t, n, 2 * n - 1)
+
+
+def farm2_stream(cfg: TwoStageConfig, state: Farm2State, blocks: torch.Tensor,
+                 step: Callable = cuda_farm_mac.phased_step,
+                 head_khat: torch.Tensor | None = None) -> torch.Tensor:
+    """Stream ``blocks [T, V, B] -> [T, V, B]`` (``farm2_stream``,
+    ``fft_convolution_tpu/parallel/farm2.py:1040``), ``T`` a multiple of
+    the period; the state advances in place.  ``step`` is the big tail's
+    phased step (:func:`..ops.cuda_farm_mac.phased_step`,
+    ``phased_step_packed`` for bf16 storage, or ``phased_step_plain``).
+    ``head_khat``: :func:`farm2_head_khat` for this call's meta length."""
+    b, tb, p = cfg.head_block, cfg.tail_block, cfg.period
+    t, v = blocks.shape[:2]
+    q = t // p
+    if q * p != t or q == 0:
+        raise ValueError(f"T={t} must be a positive multiple of the period {p}")
+    vx = blocks.transpose(0, 1)                            # [V, T, B]
+    y, state.hist = _heads_fused(cfg, state.head, state.tail0, vx, state.hist,
+                                 state.suppress, head_khat)
+    big_rows = blocks.reshape(q, p, v, b).transpose(1, 2).reshape(q, v, tb)
+    out_t = _tail_corr_phased_fused(cfg.tail, state.tail, big_rows, step)
+    # the two-period delay line, slot by slot: the pending precalc, the
+    # pending output, then this call's early big-tail outputs
+    yq = y.view(v, q, tb)
+    yq[:, 0] += state.tail_precalc
+    if q >= 2:
+        yq[:, 1] += state.tail_output
+    if q > 2:
+        yq[:, 2:] += out_t[:-2].transpose(0, 1)
+    state.tail_precalc = out_t[-2].clone() if q >= 2 else state.tail_output
+    state.tail_output = out_t[-1].clone()
+    state.suppress.fill_(False)
+    return y.transpose(0, 1).contiguous()

@@ -1,5 +1,5 @@
-"""Kernels B1, B1p, B2, B3 and B4 on the card against their plain PyTorch
-versions.
+"""Kernels B1, B1p, B2, B3, B4 and B5 on the card against their plain
+PyTorch versions.
 
 These need an NVIDIA card with nvcc (``sm_90a``) and skip elsewhere.  The
 repository's ``tests/conftest.py`` imports JAX; where JAX is not installed,
@@ -14,8 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+from fft_convolution_tpu_torch import ReverbFarm
 from fft_convolution_tpu_torch.models import crossfade, uniform
-from fft_convolution_tpu_torch.ops import cuda_crossfade, cuda_engine, cuda_stream, cuda_two_stage
+from fft_convolution_tpu_torch.ops import (cuda_crossfade, cuda_engine, cuda_farm_mac,
+                                           cuda_stream, cuda_two_stage)
 from fft_convolution_tpu_torch.serving import (CudaCrossfadeConvolver, CudaFFTConvolver,
                                                CudaStreamingConvolver, CudaTwoStageConvolver)
 
@@ -287,3 +289,117 @@ def test_new_kernels_reject_bad_operands(dev):
     (consts, st), _ = _b1_operands(b, n, dev, 133)
     with pytest.raises(ValueError):  # complex64 storage given to B1p
         cuda_engine.block_step_packed(consts, st, torch.zeros(b, device=dev))
+
+
+# ---- kernel B5: the reverb farm's big-tail phased step ------------------------
+
+def _b5_operands(rng, n, v, tb, dev, packed):
+    ring = torch.from_numpy((rng.standard_normal((n, v, tb + 1, 2)) * 0.1)
+                            .astype(np.float32)).to(dev)
+    table = torch.from_numpy((rng.standard_normal((n, v, tb + 1, 2)) * 0.1)
+                             .astype(np.float32)).to(dev)
+    if packed:
+        return ring.to(torch.bfloat16), table.to(torch.bfloat16)
+    return torch.view_as_complex(ring).contiguous(), torch.view_as_complex(table).contiguous()
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("v,tb,n,steps", [
+    (3, 64, 16, ((0, 1), (15, 16), (7, 5), (13, 3), (15, 1))),
+    (2, 1024, 8, ((7, 8), (3, 3), (0, 2))),
+    (5, 128, 88, ((87, 16), (40, 8), (0, 7), (86, 13))),
+    (1, 32, 1, ((0, 1),)),
+])
+def test_b5_kernel_matches_plain(dev, packed, v, tb, n, steps):
+    """B5 against phased_step_plain for phases through q = N-1, T = 1, T = 16
+    and T that are not multiples of 8, over several voice and bin counts:
+    sums and pre to float32 rounding in another order, the ring written
+    exactly (both round to nearest even)."""
+    rng = np.random.default_rng(140 + n)
+    ring, table = _b5_operands(rng, n, v, tb, dev, packed)
+    step = cuda_farm_mac.phased_step_packed if packed else cuda_farm_mac.phased_step
+    for q, t_len in steps:
+        specs = torch.from_numpy((rng.standard_normal((t_len, v, tb + 1)) * 0.1)
+                                 .astype(np.complex64)).to(dev)
+        plain = ring.clone()
+        convs, pre = step(ring, table, specs, q)
+        pc, pp = cuda_farm_mac.phased_step_plain(plain, table, specs, q)
+        torch.cuda.synchronize()
+        _close(convs, pc, f"convs q={q} T={t_len}")
+        _close(pre, pp, f"pre q={q} T={t_len}")
+        assert torch.equal(ring, plain), f"ring q={q} T={t_len}"
+
+
+@pytest.mark.parametrize("tail_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_b5_farm_replays_bit_exact(dev, tail_dtype):
+    """One thread per lane, sums in a fixed order, no atomics: a replay after
+    reset, and after restore, is bit-equal."""
+    rng = np.random.default_rng(150)
+    irs = (rng.standard_normal((3, 9000)) * 0.05).astype(np.float32)
+    farm = ReverbFarm(irs, 64, 9000, tail_dtype=tail_dtype, device=dev)
+    p = farm.period
+    x = torch.from_numpy(rng.standard_normal((10 * p, 3, 64)).astype(np.float32)).to(dev)
+    calls = [x[:2 * p], x[2 * p:3 * p], x[3 * p:7 * p], x[7 * p:]]
+    y1 = torch.cat([farm.process(c) for c in calls])
+    farm.reset()
+    assert torch.equal(y1, torch.cat([farm.process(c) for c in calls]))
+    farm.reset()
+    farm.process(calls[0])
+    snap = farm.snapshot()
+    y2 = torch.cat([farm.process(c) for c in calls[1:]])
+    farm.restore(snap)
+    assert torch.equal(y2, torch.cat([farm.process(c) for c in calls[1:]]))
+
+
+def test_b5_rejects_bad_operands(dev):
+    rng = np.random.default_rng(151)
+    n, v, tb = 8, 2, 64
+    ring, table = _b5_operands(rng, n, v, tb, dev, packed=False)
+    specs = torch.zeros((2, v, tb + 1), dtype=torch.complex64, device=dev)
+    step = cuda_farm_mac.phased_step
+    with pytest.raises(ValueError):  # T > N
+        step(ring, table, torch.zeros((9, v, tb + 1), dtype=torch.complex64, device=dev), 0)
+    with pytest.raises(ValueError):  # phase outside the ring
+        step(ring, table, specs, n)
+    with pytest.raises(ValueError):  # specs not complex64
+        step(ring, table, torch.zeros((2, v, tb + 1), device=dev), 0)
+    with pytest.raises(ValueError):  # a table of another shape
+        step(ring, table[:, :1].contiguous(), specs, 0)
+    with pytest.raises(ValueError):  # not contiguous
+        step(ring.transpose(1, 2).contiguous().transpose(1, 2), table, specs, 0)
+    with pytest.raises(ValueError):  # complex64 storage given to the bf16 form
+        cuda_farm_mac.phased_step_packed(ring, table, specs, 0)
+    with pytest.raises(ValueError):  # the ring on the CPU
+        step(ring.cpu(), table, specs, 0)
+    big_ring, big_table = _b5_operands(rng, 17, 1, 16, dev, packed=False)
+    with pytest.raises(ValueError):  # T > 16
+        step(big_ring, big_table, torch.zeros((17, 1, 17), dtype=torch.complex64,
+                                              device=dev), 0)
+
+
+@pytest.mark.parametrize("tail_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_reverb_farm_on_card_matches_cpu(dev, tail_dtype):
+    """A small farm on the card (kernel B5, cuFFT) against the same farm on
+    the CPU (plain step, pocketfft) through calls of 2, 1, 4 and 3 periods
+    and a per-voice update.  bf16: a ring row the two DFTs round to
+    neighbouring bf16 values carries into later calls, so the bound is the
+    5e-3 of the output scale the on-card bf16 gates use."""
+    rng = np.random.default_rng(152)
+    irs = (rng.standard_normal((3, 9000)) * 0.05).astype(np.float32)
+    gpu = ReverbFarm(irs, 64, 9000, tail_dtype=tail_dtype, device=dev)
+    cpu = ReverbFarm(irs, 64, 9000, tail_dtype=tail_dtype)
+    p = gpu.period
+    launches = (cuda_farm_mac.phased_step_packed if tail_dtype == torch.bfloat16
+                else cuda_farm_mac.phased_step)
+    before = launches.launches
+    for call, periods in enumerate((2, 1, 4, 3)):
+        if call == 2:
+            new = (rng.standard_normal((1, 5000)) * 0.05).astype(np.float32)
+            gpu.update_voices([1], new)
+            cpu.update_voices([1], new)
+        x = rng.standard_normal((periods * p, 3, 64)).astype(np.float32)
+        got, want = gpu.process(x).cpu(), cpu.process(x)
+        scale = max(1.0, float(want.abs().max()))
+        tol = 2e-5 if tail_dtype == torch.float32 else 5e-3
+        assert float((got - want).abs().max()) <= tol * scale, f"call {call}"
+    assert launches.launches == before + 4
