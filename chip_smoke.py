@@ -52,16 +52,27 @@ after; the flagship shape is block 128 and a 10 s 48 kHz IR.
 13. latency of 2- and 8-period farm calls, both storages, kernel path
     against plain path, with real-time voices (voices x audio seconds /
     wall seconds), and the time of the B5 step alone against its plain
-    version (recorded, not gated).
+    version (recorded, not gated);
+14. a ``torch.profiler`` window over 256 warm steps of each per-block kernel
+    (B1, B1p, B2, B3) and 24 warm 64-block calls of B4 and B4p, each kernel
+    wrapper called directly on its wrapper's operands: device microseconds
+    per step (CUDA kernel events only) and CUDA kernels per step, gated to 1
+    for the one-launch kernels B2 and B3.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
-line before it lists each kernel with its launches, error and times.
+line before it lists each kernel with its launches, error and times: the
+kernel and plain paths' best CUDA-event medians (``ms``, ``plain_ms``), the
+least time the card could take for the kernel's work from its shapes
+(``bound_ms``, ``bound_us``, ``bound_by``; formulas in :func:`bound`),
+``library_ms`` (null: no single PyTorch call computes a step), and for B1-B4
+the profile's ``device_us`` and ``cuda_launches_per_step``.
 Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -88,6 +99,11 @@ FARM_PERIODS = [8] * 11 + [2, 1, 4, 3]  # 11 x 8 = 88: the tail phase wraps
 FARM_SHAPES = (32768, 256, 256, 256, 88)  # tail block, period, head, tail0, tail
 FARM_UPDATED = [3, 64, 127]
 FARM_TIMED = {2: (2, 6), 8: (2, 4)}       # periods per call: (warm-up, timed) calls
+PROFILE_STEPS, PROFILE_WARMUP = 256, 64   # per-block kernels (phase 14)
+PROFILE_CALLS, PROFILE_CALL_WARMUP = 24, 4  # B4 calls
+# one H100 SXM: the HBM3 rate and the FP32 peak outside the tensor cores
+# (NVIDIA's data sheet, at the full 700 W power limit)
+HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
 
 
 def fail(msg: str) -> None:
@@ -140,6 +156,57 @@ class Counts:
         if got != want:
             fail(f"{label}: launch counts {got} != {want}")
         return out
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for work that must move
+    ``nbytes`` (each input read once, each output written once) and do
+    ``flops`` FP32 operations: the larger of the two quotients."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    t = max(t_bytes, t_ops)
+    return {"bound_ms": t * 1e3, "bound_us": t * 1e6,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def fft_flops(b: int) -> float:
+    """One real transform of 2b points: 2.5 N log2 N with N = 2b."""
+    return 2.5 * (2 * b) * math.log2(2 * b)
+
+
+def step_bound(n: int, b: int, tables: int, item: int, vectors_in: int,
+               vectors_out: int) -> dict:
+    """A per-block step over an n-row ring shared by ``tables`` IR tables
+    of b+1 bins stored ``item`` bytes a bin: ring and tables read once, ring
+    row ``current`` written, the twiddle table (2b complex64) read, and
+    ``vectors_in`` / ``vectors_out`` float32 vectors of b samples (input
+    block, overlaps, period-buffer rows, output).  FLOPs: 8 a complex MAC,
+    one forward and ``tables`` inverse transforms."""
+    nb = b + 1
+    nbytes = ((1 + tables) * n * nb + nb) * item + 2 * b * 8 \
+        + (vectors_in + vectors_out) * b * 4
+    return bound(nbytes, 8 * tables * n * nb + (1 + tables) * fft_flops(b))
+
+
+def profile_steps(step, steps: int, warmup: int) -> dict:
+    """Device time per step: ``step(i)`` for ``warmup`` calls, then a
+    ``torch.profiler`` window over ``steps`` calls.  Sums the CUDA kernel
+    events only (not the host-side rows, which would count each kernel
+    twice; not memory copies or sets)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(warmup):
+        step(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(warmup, warmup + steps):
+            step(i)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    names = sorted({e.name for e in kernels})
+    return {"device_us": sum(e.time_range.elapsed_us() for e in kernels) / steps,
+            "cuda_launches_per_step": len(kernels) / steps, "names": names}
 
 
 def latency(conv, xs: torch.Tensor, warmup: int = WARMUP_BLOCKS,
@@ -496,6 +563,7 @@ def main() -> None:
     phase_done("12 B5 bf16 farm")
 
     # ---- 13. farm latency, kernel path against plain path ---------------------
+    farm_step = {}  # tag: (step ms, bound of the step alone)
     for dtype, tag in ((torch.float32, "B5"), (torch.bfloat16, "B5p")):
         f = ReverbFarm(farm_irs, BLOCK, farm_irs.shape[1], device=dev, tail_dtype=dtype)
         f_plain = f.clone()
@@ -533,20 +601,78 @@ def main() -> None:
             ms = start.elapsed_time(end) / reps
             print(f"{tag} step alone, T=8, {kind}: {ms!r} ms; {moved / 1e9!r} GB compulsory "
                   f"-> {moved / ms / 1e9!r} TB/s", flush=True)
+            if kind == "kernel":
+                # FLOPs: 8 a complex MAC, T x N ring rows a lane
+                farm_step[tag] = (ms, bound(moved, 8 * 8 * cfg.tail.seg_count * lanes))
         del f, f_plain, tail, specs
         torch.cuda.empty_cache()
     phase_done("13 B5 latency")
+
+    # ---- 14. device time and CUDA launches per step, from the profiler ------------
+    n_uni, p_two, n_xf = uni.cfg.seg_count, two.cfg.period, xf.cfg.seg_count
+    n_two = two.cfg.head.seg_count
+    steps = {
+        "B1": lambda i: cuda_engine.block_step(uni.consts, uni.state, xs[i]),
+        "B1p": lambda i: cuda_engine.block_step_packed(uni_bf.consts, uni_bf.state, xs[i]),
+        "B2": lambda i: cuda_two_stage.block_step(two.consts, two.fstate, two.buffers,
+                                                  i % p_two, xs[i]),
+        "B3": lambda i: cuda_crossfade.block_step(xf.consts, xf.state, xf.cf_cfg,
+                                                  xf.cf_state, xs[i]),
+    }
+    bounds = {"B1": step_bound(n_uni, BLOCK, 1, 8, 2, 2),
+              "B1p": step_bound(n_uni, BLOCK, 1, 4, 2, 2),
+              # in: x, both overlaps, both precalculated tail rows; out: y,
+              # both overlaps, tail0's output row, the period input row
+              "B2": step_bound(n_two, BLOCK, 2, 8, 5, 5),
+              "B3": step_bound(n_xf, BLOCK, 2, 8, 3, 3)}
+    profiled = {label: profile_steps(step, PROFILE_STEPS, PROFILE_WARMUP)
+                for label, step in steps.items()}
+    nb = BLOCK + 1
+    for label, conv in (("B4", st), ("B4p", st_bf)):
+        # per 64-block call: ring read, table read (f32 or bf16), the call's
+        # new ring rows written, twiddles, input and output blocks, overlap
+        # in and out; FLOPs: T x N complex MACs, a forward and an inverse
+        # transform a block
+        item = 8 if label == "B4" else 4
+        nbytes = n_st * nb * (8 + item) + STREAM_CALL * nb * 8 + 2 * BLOCK * 8 \
+            + 2 * STREAM_CALL * BLOCK * 4 + 2 * BLOCK * 4
+        flops = 8 * STREAM_CALL * n_st * nb + 2 * STREAM_CALL * fft_flops(BLOCK)
+        profiled[label] = profile_steps(
+            lambda i, c=conv: c._step(c.consts, c.state, x_st[i % STREAM_CALLS]
+                                      .reshape(-1, BLOCK)),
+            PROFILE_CALLS, PROFILE_CALL_WARMUP)
+        bounds[label] = bound(nbytes, flops)
+    for label, prof in profiled.items():
+        print(f"profile {label}: {prof['device_us']!r} device us and "
+              f"{prof['cuda_launches_per_step']!r} CUDA kernels per step "
+              f"({', '.join(prof['names'])}); bound {bounds[label]['bound_us']!r} us by "
+              f"{bounds[label]['bound_by']}", flush=True)
+    for label in ("B2", "B3"):
+        # one kernel, once a step (the profiler may drop an event of 256)
+        prof = profiled[label]
+        if len(prof["names"]) != 1 or round(prof["cuda_launches_per_step"]) != 1:
+            fail(f"{label}: {prof['cuda_launches_per_step']!r} CUDA kernels per step "
+                 f"({prof['names']}), not one launch of one kernel")
+    phase_done("14 device profile")
 
     def best(label, kind, key="event_ms"):
         return min(r[key] for r in timing[label][kind])
 
     def row(label, name, source, replaces, err, timed=None):
         timed = timed or label
-        return {"name": name, "route": "cuda",
-                "source": f"fft_convolution_tpu_torch/csrc/{source}",
-                "replaces": f"fft_convolution_tpu/ops/{replaces}",
-                "launches": launches[label], "max_abs_err": err,
-                "ms": best(timed, "kernel"), "plain_ms": best(timed, "plain")}
+        out = {"name": name, "route": "cuda",
+               "source": f"fft_convolution_tpu_torch/csrc/{source}",
+               "replaces": f"fft_convolution_tpu/ops/{replaces}",
+               "launches": launches[label], "max_abs_err": err,
+               "ms": best(timed, "kernel"), "plain_ms": best(timed, "plain")}
+        if label in profiled:
+            out.update(bounds[label], device_us=profiled[label]["device_us"],
+                       cuda_launches_per_step=profiled[label]["cuda_launches_per_step"])
+        else:  # B5: the step alone at T = 8
+            step_ms, bd = farm_step[label]
+            out.update(bd, step_ms=step_ms)
+        out["library_ms"] = None
+        return out
 
     kernels = [
         row("B1", "B1 uniform block step", "b1_uniform_step.cu", "pallas_engine.py:171",
@@ -567,7 +693,8 @@ def main() -> None:
             ("B5p", "B5-bf16 farm big-tail phased step, bf16 ring and table",
              "pallas_farm_mac.py:299", b5p_err)):
         kernels.append(row(label, name + f" ({FARM_VOICES} voices x {FARM_SECONDS} s; ms "
-                           "per 8-period ReverbFarm.process call)", "b5_farm_tail.cu",
+                           "per 8-period ReverbFarm.process call; step_ms and the bound "
+                           "for the step alone at T=8)", "b5_farm_tail.cu",
                            replaces, err, timed=f"{label} 8-period"))
     print(f"total: {time.perf_counter() - t_run:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -30,12 +30,12 @@ _SIGNATURES = {
     # x, seg, ir, tw, partial, y, overlap; n, b, cur, rows, grid; stream
     "fdl_b1_step": [_P] * 7 + [_I] * 5 + [_P],
     "fdl_b1p_step": [_P] * 7 + [_I] * 5 + [_P],
-    # x, seg, h_ir, t_ir, tw, partial, y, h_ov, t_ov, out0_row,
+    # x, seg, h_ir, t_ir, tw, partial, ticket, y, h_ov, t_ov, out0_row,
     # tail_in_row, pre0_row, pre_row; n, b, cur, rows, grid; stream
-    "fdl_b2_step": [_P] * 13 + [_I] * 5 + [_P],
-    # x, seg, ir_a, ir_b, tw, partial, y, ov_a, ov_b; n, b, cur, rows, grid,
-    # approaching, is_b, counter, fading, mixer; mix_value, step; stream
-    "fdl_b3_step": [_P] * 9 + [_I] * 10 + [_F] * 2 + [_P],
+    "fdl_b2_step": [_P] * 14 + [_I] * 5 + [_P],
+    # x, seg, ir_a, ir_b, tw, partial, ticket, y, ov_a, ov_b; n, b, cur, rows,
+    # grid, approaching, is_b, counter, fading, mixer; mix_value, step; stream
+    "fdl_b3_step": [_P] * 10 + [_I] * 10 + [_F] * 2 + [_P],
     # x, spec, ring, irrev, tw, partial, tails, y, overlap; n, b, T, w0,
     # rows, splits; stream
     "fdl_b4_stream": [_P] * 9 + [_I] * 6 + [_P],

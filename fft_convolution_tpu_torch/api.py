@@ -41,7 +41,7 @@ class FFTConvolver:
     contract (``src/fft_convolver.rs:86-307``)."""
 
     def __init__(self, response, block_size: int, max_response_length: int,
-                 device="cpu"):
+                 device="cuda"):
         self.device = torch.device(device)
         self.cfg, self.state = uniform.init(as_signal(response, self.device),
                                             block_size, max_response_length,

@@ -58,8 +58,9 @@ class ReverbFarm:
     hbm_budget_bytes : the eager capacity guard of
         :func:`.parallel.farm2.farm2_init`: ``"auto"`` (the CUDA device's
         free memory; no check on the CPU), a byte budget, or None.
-    device : where the farm lives (default: where ``irs`` is, the CPU for
-        an array).
+    device : where the farm lives.  None (the default) means the card:
+        where ``irs`` is if it is a CUDA tensor, else ``"cuda"``, for a
+        numpy array too.  Pass ``device="cpu"`` for the CPU.
     """
 
     def __init__(self, irs, block_size: int, max_response_length: int, *,
@@ -73,6 +74,9 @@ class ReverbFarm:
                              f"plain version on the CPU), got {tail_mac!r}")
         _check_precision(dft_precision, "dft_precision")
         _check_precision(tail_dft_precision, "tail_dft_precision")
+        if device is None:
+            on_card = isinstance(irs, torch.Tensor) and irs.is_cuda
+            device = irs.device if on_card else "cuda"
         irs = torch.as_tensor(irs, dtype=torch.float32, device=device)
         self.cfg, self.state = farm2.farm2_init(
             irs, block_size, max_response_length, tail_dtype=tail_dtype,

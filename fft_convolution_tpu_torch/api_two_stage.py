@@ -23,7 +23,7 @@ class TwoStageFFTConvolver:
     """
 
     def __init__(self, response, block_size: int, max_response_length: int,
-                 device="cpu"):
+                 device="cuda"):
         if block_size <= 0 or block_size & (block_size - 1):
             # the schedule indexes period buffers at head-block granularity
             # (PARITY.md divergence 2)

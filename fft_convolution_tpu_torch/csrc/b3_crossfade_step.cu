@@ -3,19 +3,23 @@
 // Replaces the Pallas kernel fft_convolution_tpu/ops/pallas_crossfade.py:_kernel
 // (via block_step).  The crossfade convolver runs two engines on the same
 // input every block (src/crossfade_convolver.rs:66-78), so they share one
-// input-spectra ring: one forward DFT, two rolled-IR MACs over that ring
-// (tables A and B), two inverse DFTs and overlap-adds.  The TPU kernel
+// input-spectra ring: one forward FFT, two rolled-IR MACs over that ring
+// (tables A and B), two inverse FFTs and overlap-adds.  The TPU kernel
 // returned ya and yb and left the per-sample crossfade mix to XLA; here the
-// finalising launch also mixes, from the crossfader's host scalars passed as
+// finishing block also mixes, from the crossfader's host scalars passed as
 // arguments (models/crossfade.py:mix_samples is the plain version), so a
-// block costs two launches and no extra torch ops.
+// block costs one launch and no extra torch ops.
 //
 // What bounds it on an H100: at the flagship N = 3750, B = 128 the ring and
 // the two tables are 3 x 3750 x 129 complex64 = 11.6 MB read per block (L2
-// resident across blocks) for ~8 MFLOP of MAC.  B2's split serves as is:
-// mac_partial<2> reads each ring row once for both tables over ~130 thread
-// blocks, and one finalising block reduces the partials in block order.
-#include "fdl_common.cuh"
+// resident across blocks) for ~8 MFLOP of MAC: 3.5 us at the 3.35 TB/s HBM
+// rate, so memory, and after it the latency of the tail of the step.  The
+// design (fdl_step.cuh, shared with B2): the MAC spreads the ring over ~130
+// thread blocks, each thread keeping six rows of loads (eighteen of them)
+// in flight; the forward FFT runs in its own block beside it; the last block to
+// take the integer ticket reduces the partials with all its threads in a
+// fixed order and runs both inverse FFTs side by side, in the same launch.
+#include "fdl_step.cuh"
 
 namespace {
 
@@ -64,67 +68,64 @@ __device__ __forceinline__ float mix_sample(const Mix& m, int i, float ya, float
   return __fadd_rn(__fmul_rn(ya, g1), __fmul_rn(yb, g2));
 }
 
-// Dynamic shared memory: 2 (b+1) + 2b float2 + 4b float.
-__global__ void b3_finalize(const float2* __restrict__ partial, int grid,
-                            const float2* __restrict__ tw, float* __restrict__ y,
-                            float* __restrict__ ov_a, float* __restrict__ ov_b,
-                            int b, Mix mix) {
+__global__ void __launch_bounds__(fdl::kStepMaxThreads)
+b3_step(fdl::StepArgs<2> a, float* __restrict__ y, float* __restrict__ ov_a,
+        float* __restrict__ ov_b, Mix mix) {
   extern __shared__ float4 smem[];
-  const int nb = b + 1;
-  float2* conv_a = reinterpret_cast<float2*>(smem);
-  float2* conv_b = conv_a + nb;
-  float2* tws = conv_b + nb;
-  float* out_a = reinterpret_cast<float*>(tws + 2 * b);
-  float* out_b = out_a + 2 * b;
-
-  for (int i = threadIdx.x; i < 2 * b; i += blockDim.x) tws[i] = tw[i];
-  fdl::reduce_partials(partial, grid, nb, conv_a);
-  fdl::reduce_partials(partial + static_cast<size_t>(grid) * nb, grid, nb, conv_b);
-  __syncthreads();
-  fdl::irdft(conv_a, tws, b, out_a);
-  fdl::irdft(conv_b, tws, b, out_b);
-  __syncthreads();
-  // each thread reads overlap[i] before it overwrites it: no cross-thread race
-  for (int i = threadIdx.x; i < b; i += blockDim.x) {
-    const float ya = out_a[i] + ov_a[i];
-    const float yb = out_b[i] + ov_b[i];
-    ov_a[i] = out_a[b + i];
-    ov_b[i] = out_b[b + i];
-    y[i] = mix_sample(mix, i, ya, yb);
+  float2* sm = reinterpret_cast<float2*>(smem);
+  if (!fdl::step_arrive<2>(a, sm)) return;
+  const int b = a.b;
+  // the overlaps, loaded now so they arrive during the finish; each thread
+  // reads its overlaps before it overwrites them: no cross-thread race
+  constexpr int kPer = fdl::kEpiloguePerThread;
+  float va[kPer], vb[kPer];
+#pragma unroll
+  for (int c = 0; c < kPer; ++c) {
+    const int i = fdl::step_tid() + c * fdl::step_threads();
+    if (i < b) {
+      va[c] = ov_a[i];
+      vb[c] = ov_b[i];
+    }
+  }
+  const float* out_a = fdl::step_finish<2>(a, sm);
+  const float* out_b = out_a + 2 * b;
+  const float scale = 1.f / static_cast<float>(2 * b);
+#pragma unroll
+  for (int c = 0; c < kPer; ++c) {
+    const int i = fdl::step_tid() + c * fdl::step_threads();
+    if (i < b) {
+      const float ya = out_a[i] * scale + va[c];
+      const float yb = out_b[i] * scale + vb[c];
+      ov_a[i] = out_a[b + i] * scale;
+      ov_b[i] = out_b[b + i] * scale;
+      y[i] = mix_sample(mix, i, ya, yb);
+    }
   }
 }
 
 }  // namespace
 
 // x f32[b]; seg c64[n, b+1] (row cur written); ir_a, ir_b c64[n, b+1];
-// tw f32[2b, 2]; partial c64[2, grid, b+1] scratch; y f32[b] out (mixed);
-// ov_a, ov_b f32[b] in/out; then the crossfader's scalars (struct Mix).
-// Returns cudaGetLastError() after the launches.
+// tw f32[2b, 2]; partial c64[2, 1 + grid, b+1] scratch; ticket u32[1], 0
+// between steps; y f32[b] out (mixed); ov_a, ov_b f32[b] in/out; rows: ring
+// rows a MAC block; grid: MAC blocks, covering the n-1 rows other than cur;
+// then the crossfader's scalars (struct Mix).  One launch; returns
+// cudaGetLastError().
 extern "C" int fdl_b3_step(const float* x, void* seg, const void* ir_a,
                            const void* ir_b, const void* tw, void* partial,
-                           float* y, float* ov_a, float* ov_b, int n, int b,
-                           int cur, int rows, int grid, int approaching,
-                           int is_b, int counter, int fading, int mixer,
-                           float mix_value, float step, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t mac_smem = fdl::mac_smem(b);
-  const size_t fin_smem = static_cast<size_t>(2 * (b + 1) + 2 * b) * sizeof(float2) +
-                          4 * b * sizeof(float);
-  cudaError_t e = fdl::allow_smem(fdl::mac_partial<2>, mac_smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = fdl::allow_smem(b3_finalize, fin_smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-
-  fdl::Tables<2> tables{{static_cast<const float2*>(ir_a),
-                         static_cast<const float2*>(ir_b)}};
-  fdl::mac_partial<2><<<grid, fdl::mac_threads(b), mac_smem, s>>>(
-      x, static_cast<float2*>(seg), tables, static_cast<const float2*>(tw),
-      static_cast<float2*>(partial), n, b, cur, rows);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+                           void* ticket, float* y, float* ov_a, float* ov_b,
+                           int n, int b, int cur, int rows, int grid,
+                           int approaching, int is_b, int counter, int fading,
+                           int mixer, float mix_value, float step, void* stream) {
+  const fdl::StepArgs<2> a{x,
+                           static_cast<float2*>(seg),
+                           {{static_cast<const float2*>(ir_a),
+                             static_cast<const float2*>(ir_b)}},
+                           static_cast<const float2*>(tw),
+                           static_cast<float2*>(partial),
+                           static_cast<unsigned int*>(ticket),
+                           n, b, cur, rows};
   const Mix mix{approaching, is_b, counter, fading, mixer, mix_value, step};
-  b3_finalize<<<1, fdl::kFinalizeThreads, fin_smem, s>>>(
-      static_cast<const float2*>(partial), grid, static_cast<const float2*>(tw),
-      y, ov_a, ov_b, b, mix);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(fdl::launch_step<2>(
+      b3_step, a, grid, static_cast<cudaStream_t>(stream), y, ov_a, ov_b, mix));
 }

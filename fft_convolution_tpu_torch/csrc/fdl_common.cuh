@@ -8,7 +8,9 @@
 // built in float64 on the host; every sum runs in a fixed order, so a step
 // is bit-reproducible.  No TF32, no library transforms: plain FP32 FMA.
 //
-// The MAC over the ring is split across thread blocks (mac_partial): block g
+// B1 and B1p split the MAC over the ring across thread blocks (mac_partial)
+// and finish in a second launch, as below; B2 and B3 run their step in one
+// launch with shared-memory FFTs (fdl_step.cuh).  In mac_partial block g
 // owns ring rows [g*rows, (g+1)*rows) and writes one partial spectrum per
 // IR table.  The block that owns row `cur` computes the fresh spectrum of the
 // new input block, uses it for that row and writes it into the ring; no

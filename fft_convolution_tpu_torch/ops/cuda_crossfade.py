@@ -8,13 +8,15 @@ input-spectra ring.  One step: one forward DFT, two rolled-IR MACs over the
 shared ring (tables A and B), two inverse DFTs and overlap-adds, and the
 per-sample crossfade mix of the two outputs under the crossfader's state at
 the block start (:func:`..models.crossfade.mix_samples`), folded into the
-kernel's finalising launch.  Precondition, as on the TPU: a full shared
+kernel's finishing block.  Precondition, as on the TPU: a full shared
 ring (both tables at the ring's segment count).
 
 :func:`block_step` launches the kernel for CUDA tensors and takes the plain
 PyTorch version :func:`block_step_plain` only for CPU tensors; it never falls
-back.  ``block_step.launches`` counts steps launched (two CUDA launches
-each).  The state is updated in place; the crossfader state is returned.
+back.  ``block_step.launches`` counts steps launched (one CUDA launch
+each).  The state is updated in place, and carries the kernel's arrival
+counter (``ticket``, see :func:`.cuda_engine.step_ticket`); the crossfader
+state is returned.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 
 from .. import _build
 from ..models import crossfade
-from .cuda_engine import check_block, require, rolled_mac, split_rows
+from .cuda_engine import check_block, require, rolled_mac, step_split, step_ticket
 from .fft import twiddles
 
 
@@ -42,6 +44,7 @@ class XfadeState:
     overlap_a: torch.Tensor  # f32 [B]
     overlap_b: torch.Tensor  # f32 [B]
     current: int             # ring head
+    ticket: torch.Tensor | None = None  # int32 [1] arrival counter, made at the first launch
 
     def clone(self) -> "XfadeState":
         return XfadeState(self.segments.clone(), self.overlap_a.clone(),
@@ -102,13 +105,15 @@ def block_step(consts: XfadeConsts, state: XfadeState,
     require(state.overlap_b, "overlap_b", (b,), torch.float32, dev)
     if not 0 <= state.current < n:
         raise ValueError(f"current {state.current} outside the ring of {n}")
-    rows, grid = split_rows(n)
-    partial = torch.empty((2, grid, nb), dtype=torch.complex64, device=dev)
+    ticket = step_ticket(state, dev)
+    rows, grid = step_split(n)
+    partial = torch.empty((2, 1 + grid, nb), dtype=torch.complex64, device=dev)
     y = torch.empty(b, device=dev)
     err = _build.library().fdl_b3_step(
         x.data_ptr(), state.segments.data_ptr(), consts.ir_a.data_ptr(),
         consts.ir_b.data_ptr(), consts.tw.data_ptr(), partial.data_ptr(),
-        y.data_ptr(), state.overlap_a.data_ptr(), state.overlap_b.data_ptr(),
+        ticket.data_ptr(), y.data_ptr(), state.overlap_a.data_ptr(),
+        state.overlap_b.data_ptr(),
         n, b, state.current, rows, grid, int(cf.approaching),
         int(cf.target == crossfade.TARGET_B), cf.counter, cf_cfg.fading_samples,
         cf_cfg.mixer_id, float(cf.mix_value), float(cf.step),

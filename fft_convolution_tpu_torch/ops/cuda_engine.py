@@ -36,8 +36,9 @@ from .. import _build
 from ..models.uniform import UniformConfig, UniformState
 from .fft import twiddles
 
-# The kernels keep the twiddle table and a 2B-sample block in shared memory
-# and run a direct O(B^2) DFT; 2048 keeps both well inside one SM.
+# The kernels keep the twiddle table and their transforms' buffers in shared
+# memory (B1: a direct O(B^2) DFT; B2, B3: FFTs, 164 KB at 2048 of the SM's
+# 227 KB); 2048 keeps them inside one SM.
 MAX_BLOCK = 2048
 
 
@@ -107,6 +108,28 @@ def split_rows(n: int) -> tuple[int, int]:
     four rows each so the reduction stays short."""
     rows = max(4, math.ceil(n / 132))
     return rows, math.ceil(n / rows)
+
+
+def step_split(n: int) -> tuple[int, int]:
+    """``(rows, grid)`` of the one-launch kernels B2 and B3: the ``n - 1``
+    ring rows other than ``current`` in ``grid`` MAC blocks of ``rows`` rows,
+    beside the block that computes the fresh spectrum — about one block per
+    SM of an H100 (132) in all, at least 8 rows each.  ``grid`` is 0 for a
+    one-row ring."""
+    rows = max(8, math.ceil((n - 1) / 131))
+    return rows, math.ceil((n - 1) / rows)
+
+
+def step_ticket(state, device: torch.device) -> torch.Tensor:
+    """The arrival counter of a one-launch kernel (B2, B3), kept in
+    ``state.ticket``: one 32-bit integer on the card, 0 between steps (the
+    last thread block of a step wraps it back).  A state gets a zeroed one at
+    its first launch; fresh states (init, ``reset``) and clones (``restore``)
+    start without one, so two states never share a counter."""
+    if state.ticket is None:
+        state.ticket = torch.zeros(1, dtype=torch.int32, device=device)
+    require(state.ticket, "ticket", (1,), torch.int32, device)
+    return state.ticket
 
 
 def require(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype,

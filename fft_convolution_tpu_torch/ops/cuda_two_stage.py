@@ -17,8 +17,10 @@ the ring's row count.
 
 :func:`block_step` launches the kernel for CUDA tensors and takes the plain
 PyTorch version :func:`block_step_plain` only for CPU tensors; it never falls
-back.  ``block_step.launches`` counts steps launched (two CUDA launches
-each).  State and period buffers are updated in place.
+back.  ``block_step.launches`` counts steps launched (one CUDA launch
+each).  State and period buffers are updated in place; the state also
+carries the kernel's arrival counter (``ticket``, see
+:func:`.cuda_engine.step_ticket`).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import dataclasses
 import torch
 
 from .. import _build
-from .cuda_engine import check_block, require, rolled_mac, split_rows
+from .cuda_engine import check_block, require, rolled_mac, step_split, step_ticket
 from .fft import twiddles
 
 BUFFERS = ("tail_output0", "precalc0", "tail_output", "precalc", "tail_input")
@@ -47,6 +49,7 @@ class FusedState:
     head_overlap: torch.Tensor  # f32 [B]
     t0_overlap: torch.Tensor    # f32 [B]
     current: int                # ring head
+    ticket: torch.Tensor | None = None  # int32 [1] arrival counter, made at the first launch
 
     def clone(self) -> "FusedState":
         return FusedState(self.segments.clone(), self.head_overlap.clone(),
@@ -115,13 +118,15 @@ def block_step(consts: FusedConsts, state: FusedState, bufs: dict, row: int,
         raise ValueError(f"current {state.current} outside the ring of {n}")
     if not 0 <= row < p:
         raise ValueError(f"row {row} outside the period of {p}")
-    rows, grid = split_rows(n)
-    partial = torch.empty((2, grid, nb), dtype=torch.complex64, device=dev)
+    ticket = step_ticket(state, dev)
+    rows, grid = step_split(n)
+    partial = torch.empty((2, 1 + grid, nb), dtype=torch.complex64, device=dev)
     y = torch.empty(b, device=dev)
     err = _build.library().fdl_b2_step(
         x.data_ptr(), state.segments.data_ptr(), consts.h_ir.data_ptr(),
         consts.t_ir.data_ptr(), consts.tw.data_ptr(), partial.data_ptr(),
-        y.data_ptr(), state.head_overlap.data_ptr(), state.t0_overlap.data_ptr(),
+        ticket.data_ptr(), y.data_ptr(), state.head_overlap.data_ptr(),
+        state.t0_overlap.data_ptr(),
         bufs["tail_output0"][row].data_ptr(), bufs["tail_input"][row].data_ptr(),
         bufs["precalc0"][row].data_ptr(), bufs["precalc"][row].data_ptr(),
         n, b, state.current, rows, grid, torch.cuda.current_stream(dev).cuda_stream)

@@ -74,7 +74,7 @@ class CudaTwoStageConvolver:
     """
 
     def __init__(self, response, block_size: int, max_response_length: int,
-                 device="cpu"):
+                 device="cuda"):
         cuda_engine.check_block(block_size)
         self.device = torch.device(device)
         cfg, state = two_stage.init(as_signal(response, self.device), block_size,
@@ -152,7 +152,7 @@ class CudaFFTConvolver:
     """
 
     def __init__(self, response, block_size: int, max_response_length: int,
-                 device="cpu", storage: str = "float32"):
+                 device="cuda", storage: str = "float32"):
         self.storage = resolve_storage(storage, streaming=False)
         self.device = torch.device(device)
         self.cfg, state = uniform.init(as_signal(response, self.device), block_size,
@@ -212,7 +212,7 @@ class CudaCrossfadeConvolver:
     """
 
     def __init__(self, response, block_size: int, max_response_length: int,
-                 crossfade_samples: int, device="cpu", mixer: str = "raised_cosine"):
+                 crossfade_samples: int, device="cuda", mixer: str = "raised_cosine"):
         self.device = torch.device(device)
         self.cfg, state = uniform.init(as_signal(response, self.device), block_size,
                                        max_response_length, self.device)
@@ -322,7 +322,7 @@ class CudaStreamingConvolver:
     """
 
     def __init__(self, response, block_size: int, max_response_length: int,
-                 chunk: int = 512, device="cpu", storage: str = "float32"):
+                 chunk: int = 512, device="cuda", storage: str = "float32"):
         self.storage = resolve_storage(storage, streaming=True)
         self.device = torch.device(device)
         response = as_signal(response, self.device)

@@ -1,0 +1,79 @@
+"""Device time per step of the port's per-block kernels, for one checkout.
+
+Run from the repository root on a machine with one NVIDIA card::
+
+    python3 profile_steps.py [--root DIR]
+
+Imports ``fft_convolution_tpu_torch`` from ``DIR`` (default: this
+checkout), builds its kernels, makes the flagship serving wrappers of
+``chip_smoke.py`` (block 128, a random 10 s 48 kHz IR, seed 0) and prints
+one JSON line: the card's name and power limit, and for B1, B1p, B2 and B3
+the device microseconds and CUDA kernels per step from a ``torch.profiler``
+window over 256 warm steps (``chip_smoke.profile_steps``), and the median
+CUDA-event span of one ``process`` call (``chip_smoke.latency``).  To
+compare two checkouts on one card, run both in one machine session, in
+turns (parent, change, change, parent).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from chip_smoke import (BLOCK, IR_SECONDS, PROFILE_STEPS, PROFILE_WARMUP, SR,
+                        T_BLOCKS, latency, profile_steps)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve().parent),
+                    help="checkout whose fft_convolution_tpu_torch is profiled")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("profile_steps: no CUDA device")
+    sys.path.insert(0, args.root)
+    import fft_convolution_tpu_torch as port
+    from fft_convolution_tpu_torch import _build
+    from fft_convolution_tpu_torch.ops import cuda_crossfade, cuda_engine, cuda_two_stage
+    from fft_convolution_tpu_torch.serving import (CudaCrossfadeConvolver, CudaFFTConvolver,
+                                                   CudaTwoStageConvolver)
+
+    _build.library()
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    ir = (rng.standard_normal(IR_SECONDS * SR) * 0.01).astype(np.float32)
+    xs = torch.from_numpy(rng.standard_normal((T_BLOCKS, BLOCK)).astype(np.float32)).to(dev)
+    uni = CudaFFTConvolver(ir, BLOCK, len(ir), device=dev)
+    uni_bf = CudaFFTConvolver(ir, BLOCK, len(ir), device=dev, storage="bf16_packed")
+    two = CudaTwoStageConvolver(ir, BLOCK, len(ir), device=dev)
+    xf = CudaCrossfadeConvolver(ir, BLOCK, len(ir), crossfade_samples=4 * BLOCK, device=dev)
+    p = two.cfg.period
+    steps = {
+        "B1": (uni, lambda i: cuda_engine.block_step(uni.consts, uni.state, xs[i])),
+        "B1p": (uni_bf, lambda i: cuda_engine.block_step_packed(uni_bf.consts, uni_bf.state,
+                                                                xs[i])),
+        "B2": (two, lambda i: cuda_two_stage.block_step(two.consts, two.fstate, two.buffers,
+                                                        i % p, xs[i])),
+        "B3": (xf, lambda i: cuda_crossfade.block_step(xf.consts, xf.state, xf.cf_cfg,
+                                                       xf.cf_state, xs[i])),
+    }
+    out = {"root": str(pathlib.Path(port.__file__).resolve().parent.parent),
+           "card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                   "--format=csv,noheader"], capture_output=True, text=True,
+                                  check=True).stdout.strip().splitlines()[0]}
+    for label, (conv, step) in steps.items():
+        prof = profile_steps(step, PROFILE_STEPS, PROFILE_WARMUP)
+        out[label] = {"device_us": prof["device_us"],
+                      "cuda_launches_per_step": prof["cuda_launches_per_step"],
+                      "kernels": prof["names"], "event_ms": latency(conv, xs)["event_ms"]}
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

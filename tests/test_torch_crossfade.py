@@ -5,6 +5,8 @@ its generic wrapper and its Pallas A/B kernel and wrapper in interpret mode)
 on the same numpy-seeded inputs.  Ports ``tests/test_crossfade.py`` and
 ``tests/test_pallas_crossfade.py``."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -150,7 +152,8 @@ def test_passthrough():
     """(``src/crossfade_convolver.rs:107-124``)"""
     response = np.zeros(1024, np.float32)
     response[0] = 1.0
-    convolver = CrossfadeConvolver(FFTConvolver(response, 1024, 1024), 1024, 1024, 1024)
+    convolver = CrossfadeConvolver(FFTConvolver(response, 1024, 1024, device="cpu"),
+                                   1024, 1024, 1024)
     np.testing.assert_allclose(convolver.process(np.ones(1024, np.float32)).numpy(), 1.0,
                                atol=1e-6)
 
@@ -162,8 +165,8 @@ def test_crossfade_convolver():
     block_size = 512
     response_a = generate_sinusoid(block_size, 1000.0, SAMPLE_RATE, 1.0)
     response_b = generate_sinusoid(block_size, 2000.0, SAMPLE_RATE, 0.7)
-    convolver_a = FFTConvolver(response_a, block_size, len(response_a))
-    convolver_b = FFTConvolver(response_b, block_size, len(response_b))
+    convolver_a = FFTConvolver(response_a, block_size, len(response_a), device="cpu")
+    convolver_b = FFTConvolver(response_b, block_size, len(response_b), device="cpu")
     cc = CrossfadeConvolver(convolver_a.clone(), block_size, block_size, block_size)
     jcc = JCrossfadeConvolver(JFFTConvolver(response_a, block_size, len(response_a)),
                               block_size, block_size, block_size)
@@ -194,7 +197,7 @@ def test_pending_response_slot():
     b = 128
     ra, rb, rc = (np.zeros(b, np.float32) for _ in range(3))
     ra[0], rb[0], rc[0] = 1.0, 0.5, 0.25
-    cc = CrossfadeConvolver(FFTConvolver(ra, b, b), b, b, b)
+    cc = CrossfadeConvolver(FFTConvolver(ra, b, b, device="cpu"), b, b, b)
     jcc = JCrossfadeConvolver(JFFTConvolver(ra, b, b), b, b, b)
     x = np.ones(b, np.float32)
     for conv in (cc, jcc):
@@ -220,7 +223,7 @@ def test_reset_unimplemented_and_extension():
     rng = np.random.default_rng(52)
     ir = _mk(rng, 256)
     x = rng.standard_normal(64 * 4).astype(np.float32)
-    cc = CrossfadeConvolver(FFTConvolver(ir, 64, 256), 256, 64, 128)
+    cc = CrossfadeConvolver(FFTConvolver(ir, 64, 256, device="cpu"), 256, 64, 128)
     with pytest.raises(NotImplementedError):
         cc.reset()
     y1 = cc.process(x)
@@ -240,7 +243,7 @@ def test_ragged_sizes_match_aligned():
     x = rng.standard_normal(128 * 12).astype(np.float32)
 
     def make():
-        return CrossfadeConvolver(FFTConvolver(ir, 128, 400), 400, 128, 300)
+        return CrossfadeConvolver(FFTConvolver(ir, 128, 400, device="cpu"), 400, 128, 300)
 
     jcc = JCrossfadeConvolver(JFFTConvolver(ir, 128, 400), 400, 128, 300)
     aligned = make()
@@ -264,7 +267,7 @@ def test_two_stage_inner_engine():
     the generic would hit the upstream todo!()."""
     response = np.zeros(1024, np.float32)
     response[0] = 1.0
-    cc = CrossfadeConvolver(TwoStageFFTConvolver(response, 128, 1024), 1024, 128, 256)
+    cc = CrossfadeConvolver(TwoStageFFTConvolver(response, 128, 1024, device="cpu"), 1024, 128, 256)
     np.testing.assert_allclose(cc.process(np.ones(128, np.float32)).numpy(), 1.0, atol=1e-6)
     with pytest.raises(NotImplementedError):
         cc.update(response)
@@ -275,13 +278,13 @@ def test_clone_independent():
     rng = np.random.default_rng(51)
     ir = _mk(rng, 256)
     x = rng.standard_normal(64 * 4).astype(np.float32)
-    cc = CrossfadeConvolver(FFTConvolver(ir, 64, 256), 256, 64, 128)
+    cc = CrossfadeConvolver(FFTConvolver(ir, 64, 256, device="cpu"), 256, 64, 128)
     cc.process(x[:128])
     twin = cc.clone()
     y1 = cc.process(x[128:])
     twin.update(_mk(rng, 100))
     y_twin = twin.process(x[128:])
-    cc2 = CrossfadeConvolver(FFTConvolver(ir, 64, 256), 256, 64, 128)
+    cc2 = CrossfadeConvolver(FFTConvolver(ir, 64, 256, device="cpu"), 256, 64, 128)
     cc2.process(x[:128])
     np.testing.assert_array_equal(y1.numpy(), cc2.process(x[128:]).numpy())
     assert (y_twin - y1).abs().max() > 0
@@ -295,11 +298,12 @@ def test_init_quirk_and_serving_engines():
     rng = np.random.default_rng(54)
     b = 64
     ir, ir2, ir3 = (_mk(rng, b * 4) for _ in range(3))
-    cc = CrossfadeConvolver.init(CudaFFTConvolver, ir[:b * 3], b, b * 4)
+    cc = CrossfadeConvolver.init(functools.partial(CudaFFTConvolver, device="cpu"), ir[:b * 3],
+                                 b, b * 4)
     assert cc.cf_cfg.fading_samples == b * 3 and cc.stored_response.shape[0] == b * 3
     assert cc.cf_cfg.hold_samples == b
-    gen = CrossfadeConvolver(CudaFFTConvolver(ir, b, len(ir)), len(ir), b, 2 * b)
-    fused = CudaCrossfadeConvolver(ir, b, len(ir), crossfade_samples=2 * b)
+    gen = CrossfadeConvolver(CudaFFTConvolver(ir, b, len(ir), device="cpu"), len(ir), b, 2 * b)
+    fused = CudaCrossfadeConvolver(ir, b, len(ir), crossfade_samples=2 * b, device="cpu")
     x = rng.standard_normal(b * 16).astype(np.float32)
     for t in range(16):
         if t in (3, 4):  # the second lands mid-fade: pending
@@ -365,7 +369,7 @@ def test_crossfade_serving_matches_pallas():
     ir3 = _mk(rng, b * 5)  # shorter than max_len: padded by the wrappers
     x = rng.standard_normal(b * 24).astype(np.float32)
     ref = PallasCrossfadeConvolver(ir1, b, max_len, crossfade_samples=fade, interpret=True)
-    conv = CudaCrossfadeConvolver(ir1, b, max_len, crossfade_samples=fade)
+    conv = CudaCrossfadeConvolver(ir1, b, max_len, crossfade_samples=fade, device="cpu")
 
     def run(lo, hi, tag):
         for t in range(lo, hi):
@@ -391,7 +395,7 @@ def test_crossfade_serving_contracts():
     rng = np.random.default_rng(52)
     b = 128
     ir = _mk(rng, b * 3)
-    p = CudaCrossfadeConvolver(ir, b, len(ir), crossfade_samples=b)
+    p = CudaCrossfadeConvolver(ir, b, len(ir), crossfade_samples=b, device="cpu")
     with pytest.raises(ValueError):
         p.process(np.zeros(b - 1, np.float32))
     with pytest.raises(ValueError):
@@ -399,10 +403,11 @@ def test_crossfade_serving_contracts():
     with pytest.raises(NotImplementedError):
         p.reset()  # todo!() upstream (src/crossfade_convolver.rs:80-82)
     with pytest.raises(ValueError):
-        CudaCrossfadeConvolver(ir, 4096, len(ir), crossfade_samples=b)  # past the kernel's DFT
+        # past the kernel's largest block
+        CudaCrossfadeConvolver(ir, 4096, len(ir), crossfade_samples=b, device="cpu")
     # the TPU's VMEM ceiling is not carried: a 30 s IR builds
     big = CudaCrossfadeConvolver(np.ones(10, np.float32), 128, 48000 * 30,
-                                 crossfade_samples=128)
+                                 crossfade_samples=128, device="cpu")
     assert big.cfg.seg_count == 11250
 
     # clone independence + snapshot/restore repeatability
@@ -435,8 +440,8 @@ def test_crossfade_hold_then_ramp_sample_exact():
     ir1 = _mk(rng, b * 2)
     ir2 = np.zeros(b * 2, np.float32)  # B silent: any leak of B shows
     x = rng.standard_normal(b * 6).astype(np.float32)
-    p = CudaCrossfadeConvolver(ir1, b, len(ir1), crossfade_samples=2 * b)
-    q = CudaCrossfadeConvolver(ir1, b, len(ir1), crossfade_samples=2 * b)
+    p = CudaCrossfadeConvolver(ir1, b, len(ir1), crossfade_samples=2 * b, device="cpu")
+    q = CudaCrossfadeConvolver(ir1, b, len(ir1), crossfade_samples=2 * b, device="cpu")
     ref = PallasCrossfadeConvolver(ir1, b, len(ir1), crossfade_samples=2 * b, interpret=True)
     y_plain = [q.process(x[t * b:(t + 1) * b]).numpy() for t in range(6)]
     p.process(x[:b])

@@ -67,31 +67,49 @@ def test_b1_kernel_matches_plain(dev, b, n):
     _close(st.overlap, plain.overlap, "overlap")
 
 
-@pytest.mark.parametrize("b,n", [(64, 16), (128, 64), (2048, 2)])
-def test_b2_kernel_matches_plain(dev, b, n):
-    rng = np.random.default_rng(80 + n)
+def _b2_operands(rng, b, n, dev):
     h = torch.fft.rfft(torch.from_numpy((rng.standard_normal((n, b)) * 0.1)
                                         .astype(np.float32)), n=2 * b).to(dev)
     t0 = torch.fft.rfft(torch.from_numpy((rng.standard_normal((n, b)) * 0.1)
                                          .astype(np.float32)), n=2 * b).to(dev)
-    consts = cuda_two_stage.build_consts(h, t0)
-    st, plain = cuda_two_stage.zero_state(n, b, dev), cuda_two_stage.zero_state(n, b, dev)
     bufs = {k: torch.from_numpy(rng.standard_normal((n, b)).astype(np.float32)).to(dev)
             for k in cuda_two_stage.BUFFERS}
+    return cuda_two_stage.build_consts(h, t0), bufs
+
+
+def _check_b2(st, plain, bufs, pbufs, y, yp, what):
+    """Output, ring, both overlaps and the period buffers against the plain
+    version; the arrival counter back at 0 after the step."""
+    _close(y, yp, what)
+    _close(st.segments, plain.segments, f"{what}: ring")
+    _close(st.head_overlap, plain.head_overlap, f"{what}: head overlap")
+    _close(st.t0_overlap, plain.t0_overlap, f"{what}: tail0 overlap")
+    for k in cuda_two_stage.BUFFERS:
+        _close(bufs[k], pbufs[k], f"{what}: {k}")
+    assert st.current == plain.current and int(st.ticket) == 0, what
+
+
+@pytest.mark.parametrize("b,n", [(64, 16), (128, 64), (2048, 2), (32, 1)])
+def test_b2_kernel_matches_plain(dev, b, n):
+    """B2 through 2n + 3 steps (the ring wraps twice; at n = 1 there is no
+    MAC block, only the one that computes the fresh spectrum)."""
+    rng = np.random.default_rng(80 + n)
+    consts, bufs = _b2_operands(rng, b, n, dev)
+    st, plain = cuda_two_stage.zero_state(n, b, dev), cuda_two_stage.zero_state(n, b, dev)
     pbufs = {k: v.clone() for k, v in bufs.items()}
-    for t in range(n + 3):
+    for t in range(2 * n + 3):
         row = t % n
         x = torch.from_numpy(rng.standard_normal(b).astype(np.float32)).to(dev)
         y = cuda_two_stage.block_step(consts, st, bufs, row, x)
         yp = cuda_two_stage.block_step_plain(consts, plain, pbufs, row, x)
         torch.cuda.synchronize()
-        _close(y, yp, f"block {t}")
-        for k in cuda_two_stage.BUFFERS:
-            _close(bufs[k], pbufs[k], k)
+        _check_b2(st, plain, bufs, pbufs, y, yp, f"block {t}")
 
 
 def test_kernels_replay_bit_exact(dev):
-    """Fixed-order sums, no atomics: a replay after restore is bit-equal."""
+    """Fixed-order sums (B2 orders its partials by block whichever block
+    finishes, through an integer ticket; no float atomics): a replay after
+    restore is bit-equal."""
     rng = np.random.default_rng(90)
     ir = (rng.standard_normal(9000) * 0.05).astype(np.float32)
     x = torch.from_numpy(rng.standard_normal((80, 64)).astype(np.float32)).to(dev)
@@ -174,16 +192,19 @@ def test_b1p_kernel_matches_plain(dev, b, n):
 
 
 @pytest.mark.parametrize("b,n,mixer", [(64, 16, "raised_cosine"), (128, 300, "sqrt"),
-                                       (32, 1, "linear"), (2048, 2, "cosine")])
+                                       (32, 1, "linear"), (2048, 2, "cosine"),
+                                       (128, 3750, "raised_cosine")])
 def test_b3_kernel_matches_plain(dev, b, n, mixer):
-    """B3 through hold, ramp, snap and a mid-ramp reversal, every mixer."""
+    """B3 through hold, ramp, snap and a mid-ramp reversal, every mixer, and
+    the flagship 10 s ring (130 MAC blocks and one ticket a step), for at
+    least 2n + 3 steps: ring and overlaps checked after every one."""
     rng = np.random.default_rng(110 + n)
     consts = cuda_crossfade.build_consts(_spectra(rng, n, b, dev), _spectra(rng, n, b, dev))
     st, plain = cuda_crossfade.zero_state(n, b, dev), cuda_crossfade.zero_state(n, b, dev)
     cfg = crossfade.CrossfaderConfig(fading_samples=3 * b + 5, hold_samples=b // 2 + 3,
                                      mixer=mixer)
     cf = cfp = crossfade.new_state(cfg)
-    for t in range(n + 12):
+    for t in range(max(2 * n + 3, 12)):
         if t in (2, 5):  # a fade, then a reversal mid-ramp
             target = crossfade.TARGET_B if t == 2 else crossfade.TARGET_A
             cf = cfp = crossfade.fade_into(cfg, cf, target)
@@ -191,11 +212,50 @@ def test_b3_kernel_matches_plain(dev, b, n, mixer):
         cf, y = cuda_crossfade.block_step(consts, st, cfg, cf, x)
         cfp, yp = cuda_crossfade.block_step_plain(consts, plain, cfg, cfp, x)
         torch.cuda.synchronize()
-        _close(y, yp, f"block {t}")
-        assert cf == cfp and st.current == plain.current
-    _close(st.segments, plain.segments, "ring")
-    _close(st.overlap_a, plain.overlap_a, "overlap_a")
-    _close(st.overlap_b, plain.overlap_b, "overlap_b")
+        _check_b3(st, plain, y, yp, f"block {t}")
+        assert cf == cfp
+
+
+def _check_b3(st, plain, y, yp, what):
+    _close(y, yp, what)
+    _close(st.segments, plain.segments, f"{what}: ring")
+    _close(st.overlap_a, plain.overlap_a, f"{what}: overlap_a")
+    _close(st.overlap_b, plain.overlap_b, f"{what}: overlap_b")
+    assert st.current == plain.current and int(st.ticket) == 0, what
+
+
+def test_one_launch_kernels_interleave_with_their_own_counters(dev):
+    """Two B2 states and a B3 state stepped in turn on one stream, none
+    synchronised between launches: each state keeps its own arrival
+    counter, and each follows its plain version."""
+    rng = np.random.default_rng(115)
+    b2 = []
+    for b, n in ((64, 40), (128, 17)):
+        consts, bufs = _b2_operands(rng, b, n, dev)
+        b2.append((consts, bufs, {k: v.clone() for k, v in bufs.items()},
+                   cuda_two_stage.zero_state(n, b, dev), cuda_two_stage.zero_state(n, b, dev)))
+    b, n = 64, 300
+    xc = cuda_crossfade.build_consts(_spectra(rng, n, b, dev), _spectra(rng, n, b, dev))
+    xs, xp = cuda_crossfade.zero_state(n, b, dev), cuda_crossfade.zero_state(n, b, dev)
+    cfg = crossfade.CrossfaderConfig(fading_samples=2 * b, hold_samples=b)
+    cf = cfp = crossfade.fade_into(cfg, crossfade.new_state(cfg), crossfade.TARGET_B)
+    for t in range(2 * n + 3):
+        outs = []
+        for consts, bufs, pbufs, st, plain in b2:
+            nb2 = st.segments.shape[0]
+            x = torch.from_numpy(rng.standard_normal(st.head_overlap.shape[0])
+                                 .astype(np.float32)).to(dev)
+            outs.append((cuda_two_stage.block_step(consts, st, bufs, t % nb2, x),
+                         cuda_two_stage.block_step_plain(consts, plain, pbufs, t % nb2, x)))
+        x = torch.from_numpy(rng.standard_normal(b).astype(np.float32)).to(dev)
+        cf, y = cuda_crossfade.block_step(xc, xs, cfg, cf, x)
+        cfp, yp = cuda_crossfade.block_step_plain(xc, xp, cfg, cfp, x)
+        torch.cuda.synchronize()
+        for (consts, bufs, pbufs, st, plain), (y2, yp2) in zip(b2, outs):
+            _check_b2(st, plain, bufs, pbufs, y2, yp2, f"B2 n={st.segments.shape[0]} block {t}")
+        _check_b3(xs, xp, y, yp, f"B3 block {t}")
+    tickets = [st.ticket for *_, st, _ in b2] + [xs.ticket]
+    assert len({tk.data_ptr() for tk in tickets}) == 3
 
 
 @pytest.mark.parametrize("packed", [False, True], ids=["f32", "bf16"])
@@ -221,8 +281,9 @@ def test_b4_kernel_matches_plain(dev, packed, b, n, calls):
 
 
 def test_new_kernels_replay_bit_exact(dev):
-    """Fixed-order sums, no atomics: replays after reset and restore are
-    bit-equal for B1p, B3 and both B4 forms."""
+    """Fixed-order sums (B3 orders its partials by block whichever block
+    finishes, through an integer ticket; no float atomics): replays after
+    reset and restore are bit-equal for B1p, B3 and both B4 forms."""
     rng = np.random.default_rng(130)
     b = 64
     ir = (rng.standard_normal(6000) * 0.05).astype(np.float32)
@@ -387,7 +448,7 @@ def test_reverb_farm_on_card_matches_cpu(dev, tail_dtype):
     rng = np.random.default_rng(152)
     irs = (rng.standard_normal((3, 9000)) * 0.05).astype(np.float32)
     gpu = ReverbFarm(irs, 64, 9000, tail_dtype=tail_dtype, device=dev)
-    cpu = ReverbFarm(irs, 64, 9000, tail_dtype=tail_dtype)
+    cpu = ReverbFarm(irs, 64, 9000, tail_dtype=tail_dtype, device="cpu")
     p = gpu.period
     launches = (cuda_farm_mac.phased_step_packed if tail_dtype == torch.bfloat16
                 else cuda_farm_mac.phased_step)

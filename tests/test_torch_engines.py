@@ -65,7 +65,7 @@ def test_fft_convolver_matches_jax():
     ir = (rng.standard_normal(1000) * 0.1).astype(np.float32)
     ir2 = (rng.standard_normal(300) * 0.1).astype(np.float32)
     x = rng.standard_normal(20 * b).astype(np.float32)
-    jc, tc = J.FFTConvolver(ir, b, 1200), T.FFTConvolver(ir, b, 1200)
+    jc, tc = J.FFTConvolver(ir, b, 1200), T.FFTConvolver(ir, b, 1200, device="cpu")
     assert isinstance(tc, T.Convolution)
     half = len(x) // 2
     np.testing.assert_allclose(_chunks(tc, x[:half], _t), _chunks(jc, x[:half], _j), atol=ATOL)
@@ -88,7 +88,7 @@ def test_fft_convolver_reset_snapshot_clone():
     b = 64
     ir = (rng.standard_normal(500) * 0.1).astype(np.float32)
     x = rng.standard_normal(12 * b).astype(np.float32)
-    conv = T.FFTConvolver(ir, b, len(ir))
+    conv = T.FFTConvolver(ir, b, len(ir), device="cpu")
     y1 = _chunks(conv, x, _t)
     conv.reset()
     np.testing.assert_array_equal(_chunks(conv, x, _t), y1)  # bit-equal replay
@@ -107,14 +107,15 @@ def test_fft_convolver_reset_snapshot_clone():
 
 def test_fft_convolver_errors_match_jax():
     ir = np.ones(100, np.float32)
-    for mod in (J, T):
+    for mod, kw in ((J, {}), (T, {"device": "cpu"})):
         with pytest.raises(ValueError):
-            mod.FFTConvolver(ir, 64, 99)
-        conv = mod.FFTConvolver(ir, 64, 100)
+            mod.FFTConvolver(ir, 64, 99, **kw)
+        conv = mod.FFTConvolver(ir, 64, 100, **kw)
         with pytest.raises(ValueError):
             conv.update(np.ones(101, np.float32))
     # block size rounds up to a power of two, as in the reference
-    assert vars(T.FFTConvolver(ir, 100, 100).cfg) == vars(J.FFTConvolver(ir, 100, 100).cfg)
+    assert (vars(T.FFTConvolver(ir, 100, 100, device="cpu").cfg)
+            == vars(J.FFTConvolver(ir, 100, 100).cfg))
 
 
 @pytest.mark.parametrize("head,total", [(64, 100), (64, 20000), (128, 480000), (256, 4096)])
@@ -147,7 +148,8 @@ def test_two_stage_convolver_matches_jax():
     ir = (rng.standard_normal(9000) * 0.05).astype(np.float32)
     ir2 = (rng.standard_normal(5000) * 0.05).astype(np.float32)
     x = rng.standard_normal(70 * b).astype(np.float32)
-    jc, tc = J.TwoStageFFTConvolver(ir, b, len(ir)), T.TwoStageFFTConvolver(ir, b, len(ir))
+    jc = J.TwoStageFFTConvolver(ir, b, len(ir))
+    tc = T.TwoStageFFTConvolver(ir, b, len(ir), device="cpu")
     assert tc.cfg.tail is not None and tc.cfg.period == jc.cfg.period
     half = 40 * b
     np.testing.assert_allclose(_chunks(tc, x[:half], _t), _chunks(jc, x[:half], _j), atol=ATOL)
@@ -166,7 +168,7 @@ def test_two_stage_reset_snapshot_clone():
     b = 32
     ir = (rng.standard_normal(2000) * 0.05).astype(np.float32)
     x = rng.standard_normal(40 * b).astype(np.float32)
-    conv = T.TwoStageFFTConvolver(ir, b, len(ir))
+    conv = T.TwoStageFFTConvolver(ir, b, len(ir), device="cpu")
     y1 = _chunks(conv, x, _t)
     conv.reset()
     np.testing.assert_array_equal(_chunks(conv, x, _t), y1)  # bit-equal replay
@@ -183,12 +185,12 @@ def test_two_stage_reset_snapshot_clone():
 
 def test_two_stage_errors_match_jax():
     ir = np.ones(3000, np.float32)
-    for mod in (J, T):
+    for mod, kw in ((J, {}), (T, {"device": "cpu"})):
         with pytest.raises(ValueError):
-            mod.TwoStageFFTConvolver(ir, 48, len(ir))   # not a power of two
+            mod.TwoStageFFTConvolver(ir, 48, len(ir), **kw)   # not a power of two
         with pytest.raises(ValueError):
-            mod.TwoStageFFTConvolver(ir, 64, 100)       # IR longer than max
-        conv = mod.TwoStageFFTConvolver(ir, 64, len(ir))
+            mod.TwoStageFFTConvolver(ir, 64, 100, **kw)       # IR longer than max
+        conv = mod.TwoStageFFTConvolver(ir, 64, len(ir), **kw)
         with pytest.raises(NotImplementedError):
             conv.update(ir)
         with pytest.raises(ValueError):
@@ -206,6 +208,6 @@ def test_port_engines_match_recorded_golden(which):
     x = generate_sinusoid(64 * 1000, 1300.0, 44100, 0.1)
     y = np.load(pathlib.Path(__file__).parent / "golden" / "compare_partitioned.npz")["y"]
     cls = T.FFTConvolver if which == "uniform" else T.TwoStageFFTConvolver
-    got = cls(ir, 64, len(ir)).process(x).numpy()
+    got = cls(ir, 64, len(ir), device="cpu").process(x).numpy()
     err = float(np.max(np.abs(got - y)))
     assert err <= 1e-5, f"{which} vs recorded golden: {err}"

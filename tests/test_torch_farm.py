@@ -410,11 +410,11 @@ def test_farm2_capacity_guard_explicit_budgets():
 def _farm(v=V, b=B, ir_len=IR_LEN, seed=30, **kw):
     rng = np.random.default_rng(seed)
     irs = rng.standard_normal((v, ir_len)).astype(np.float32) * 0.05
-    return ReverbFarm(irs, b, ir_len, **kw), irs, rng
+    return ReverbFarm(irs, b, ir_len, device="cpu", **kw), irs, rng
 
 
 def _engine(ir, cap=IR_LEN):
-    return TwoStageFFTConvolver(ir, B, cap)
+    return TwoStageFFTConvolver(ir, B, cap, device="cpu")
 
 
 def _voice(y, voice):
@@ -444,7 +444,7 @@ def test_reverb_farm_matches_jax_reverb_farm():
     farm and the JAX package's, call by call."""
     rng = np.random.default_rng(73)
     irs = _irs(rng, 4)
-    ours, theirs = ReverbFarm(irs, B, IR_LEN), JaxReverbFarm(irs, B, IR_LEN)
+    ours, theirs = ReverbFarm(irs, B, IR_LEN, device="cpu"), JaxReverbFarm(irs, B, IR_LEN)
     p = ours.period
     for step, periods in enumerate([2, 1, 2, 2, 1, 2]):
         if step == 2:
@@ -495,11 +495,11 @@ def test_reverb_farm_contracts():
     with pytest.raises(ValueError):
         farm_.update(np.zeros((V, irs.shape[1] + 1), np.float32))
     with pytest.raises(ValueError):
-        ReverbFarm(np.zeros(100, np.float32), 64, 100)  # 1-D irs
+        ReverbFarm(np.zeros(100, np.float32), 64, 100, device="cpu")  # 1-D irs
     with pytest.raises(ValueError, match="tail_mac"):
-        ReverbFarm(irs, 64, IR_LEN, tail_mac="jnp")
+        ReverbFarm(irs, 64, IR_LEN, tail_mac="jnp", device="cpu")
     with pytest.raises(ValueError, match="power of two"):
-        ReverbFarm(irs, 48, IR_LEN)
+        ReverbFarm(irs, 48, IR_LEN, device="cpu")
 
 
 def test_reverb_farm_capacity_guard():
@@ -510,12 +510,12 @@ def test_reverb_farm_capacity_guard():
     per_voice = farm2.farm2_bytes_per_voice(64, 9000, t_blocks=8 * 16)
     assert per_voice > 0
     with pytest.raises(ValueError, match="GB"):
-        ReverbFarm(irs, 64, 9000, hbm_budget_bytes=2 * per_voice)
+        ReverbFarm(irs, 64, 9000, hbm_budget_bytes=2 * per_voice, device="cpu")
     with pytest.raises(ValueError, match="voices fit"):
         farm2.farm2_init(irs, 64, 9000, hbm_budget_bytes=2 * per_voice)
-    farm_ = ReverbFarm(irs, 64, 9000, hbm_budget_bytes=16 * per_voice)
+    farm_ = ReverbFarm(irs, 64, 9000, hbm_budget_bytes=16 * per_voice, device="cpu")
     assert farm_.voices == 4
-    ReverbFarm(irs, 64, 9000, hbm_budget_bytes=None)
+    ReverbFarm(irs, 64, 9000, hbm_budget_bytes=None, device="cpu")
 
 
 def test_reverb_farm_per_call_ceiling():
@@ -536,7 +536,7 @@ def test_reverb_farm_mesh_not_ported(case):
     rng = np.random.default_rng(43)
     irs = _irs(rng, 4)
     with pytest.raises(NotImplementedError, match="A11"):
-        ReverbFarm(irs, B, IR_LEN, mesh=case)
+        ReverbFarm(irs, B, IR_LEN, mesh=case, device="cpu")
 
 
 def test_reverb_farm_varying_call_lengths():
@@ -623,7 +623,7 @@ def test_reverb_farm_update_voice_short_ir_farm():
     """The short-IR farm (no big tail stage) is ROADMAP A7."""
     rng = np.random.default_rng(46)
     with pytest.raises(NotImplementedError, match="A7"):
-        ReverbFarm(_irs(rng, V, 120), B, 120)
+        ReverbFarm(_irs(rng, V, 120), B, 120, device="cpu")
 
 
 def test_reverb_farm_head_dft_precision_names():
@@ -631,13 +631,13 @@ def test_reverb_farm_head_dft_precision_names():
     is float32 torch.fft, so the output is the same); bogus names raise."""
     farm_, irs, rng = _farm(seed=47)
     fast = ReverbFarm(irs, 64, IR_LEN, dft_precision="bf16", tail_dft_precision="high",
-                      tail_dtype=torch.bfloat16)
+                      tail_dtype=torch.bfloat16, device="cpu")
     x = rng.standard_normal((2 * farm_.period, V, B)).astype(np.float32)
     _scaled(fast.process(x), farm_.process(x), 2e-2, "bf16 tail vs f32")
     with pytest.raises(ValueError, match="dft_precision"):
-        ReverbFarm(irs, 64, IR_LEN, dft_precision="bogus")
+        ReverbFarm(irs, 64, IR_LEN, dft_precision="bogus", device="cpu")
     with pytest.raises(ValueError, match="tail_dft_precision"):
-        ReverbFarm(irs, 64, IR_LEN, tail_dft_precision="bogus")
+        ReverbFarm(irs, 64, IR_LEN, tail_dft_precision="bogus", device="cpu")
 
 
 def test_reverb_farm_update_voices_packed_storage():
@@ -645,7 +645,7 @@ def test_reverb_farm_update_voices_packed_storage():
     bit for bit, and untouched voices stay bit-identical."""
     rng = np.random.default_rng(49)
     irs = _irs(rng, 4)
-    farm_ = ReverbFarm(irs, B, IR_LEN, tail_dtype=torch.bfloat16)
+    farm_ = ReverbFarm(irs, B, IR_LEN, tail_dtype=torch.bfloat16, device="cpu")
     assert farm_.state.tail.table.dtype == torch.bfloat16
     t = 2 * farm_.period
     x = rng.standard_normal((2 * t, 4, B)).astype(np.float32)

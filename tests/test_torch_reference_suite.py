@@ -38,7 +38,7 @@ def test_passthrough(engine):
     """δ-impulse IR ⇒ identity, tol 1e-6."""
     response = np.zeros(1024, np.float32)
     response[0] = 1.0
-    conv = ENGINES[engine](response, 1024, len(response))
+    conv = ENGINES[engine](response, 1024, len(response), device="cpu")
     np.testing.assert_allclose(_np(conv.process(np.ones(1024, np.float32))), 1.0, atol=1e-6)
 
 
@@ -50,7 +50,7 @@ def test_golden_direct_convolution(engine, ir_len, n, seed):
     rng = np.random.default_rng(seed)
     ir = rng.standard_normal(ir_len).astype(np.float32) * 0.05
     x = rng.standard_normal(n).astype(np.float32)
-    y = _np(ENGINES[engine](ir, 64, len(ir)).process(x))
+    y = _np(ENGINES[engine](ir, 64, len(ir), device="cpu").process(x))
     np.testing.assert_allclose(y, _direct(x, ir, n), atol=1e-5)
 
 
@@ -60,7 +60,7 @@ def test_update_is_reset():
     block = 512
     a = generate_sinusoid(block, 1000.0, SAMPLE_RATE, 1.0)
     b = generate_sinusoid(block, 2000.0, SAMPLE_RATE, 0.7)
-    conv_a, conv_b, conv_u = (FFTConvolver(r, block, block) for r in (a, b, a))
+    conv_a, conv_b, conv_u = (FFTConvolver(r, block, block, device="cpu") for r in (a, b, a))
     x = generate_sinusoid(16 * block, 1300.0, SAMPLE_RATE, 1.0)
     for i in range(16):
         if i == 8:
@@ -77,10 +77,12 @@ def test_block_size_equal(engine):
     == uniform block 32 on a 12,000-tap IR; 1000 blocks each."""
     if engine == "uniform":
         block, ir = 128, generate_sinusoid(128, 1000.0, SAMPLE_RATE, 0.1)
-        a, b = FFTConvolver(ir, block // 2, len(ir)), FFTConvolver(ir, block, len(ir))
+        a = FFTConvolver(ir, block // 2, len(ir), device="cpu")
+        b = FFTConvolver(ir, block, len(ir), device="cpu")
     else:
         block, ir = 64, generate_sinusoid(12000, 1000.0, SAMPLE_RATE, 0.1)
-        a, b = FFTConvolver(ir, block // 2, len(ir)), TwoStageFFTConvolver(ir, block, len(ir))
+        a = FFTConvolver(ir, block // 2, len(ir), device="cpu")
+        b = TwoStageFFTConvolver(ir, block, len(ir), device="cpu")
     x = generate_sinusoid(1000 * block, 1300.0, SAMPLE_RATE, 0.1)
     np.testing.assert_allclose(_np(a.process(x)), _np(b.process(x)), atol=1e-5)
 
@@ -88,7 +90,7 @@ def test_block_size_equal(engine):
 @pytest.mark.parametrize("engine", ENGINES)
 def test_reset_repeatable(engine):
     response = generate_sinusoid(12000, 1000.0, SAMPLE_RATE, 0.1)
-    conv = ENGINES[engine](response, 64, len(response))
+    conv = ENGINES[engine](response, 64, len(response), device="cpu")
     x = generate_sinusoid(1000 * 64, 1300.0, SAMPLE_RATE, 0.1)
     out_a = _np(conv.process(x))
     conv.reset()
@@ -104,8 +106,8 @@ def test_subblock_chunking_matches_block_aligned(engine, block, sizes):
     ir = rng.standard_normal(4000).astype(np.float32) * 0.05
     n = sum(sizes)
     x = rng.standard_normal(n).astype(np.float32)
-    y_ref = _np(ENGINES[engine](ir, block, len(ir)).process(x))
-    odd = ENGINES[engine](ir, block, len(ir))
+    y_ref = _np(ENGINES[engine](ir, block, len(ir), device="cpu").process(x))
+    odd = ENGINES[engine](ir, block, len(ir), device="cpu")
     pos, pieces = 0, []
     for s in sizes:
         pieces.append(_np(odd.process(x[pos:pos + s])))
@@ -118,7 +120,7 @@ def test_update_shrinks_active_segments():
     ir_long = rng.standard_normal(512).astype(np.float32) * 0.1
     ir_short = rng.standard_normal(100).astype(np.float32) * 0.1
     x = rng.standard_normal(1024).astype(np.float32)
-    c = FFTConvolver(ir_long, 64, 512)
+    c = FFTConvolver(ir_long, 64, 512, device="cpu")
     c.update(ir_short)
     np.testing.assert_allclose(_np(c.process(x)), _direct(x, ir_short, 1024), atol=1e-5)
 
@@ -134,7 +136,7 @@ def test_update_midstream_keeps_history_analytic_golden():
     ir2 = rng.standard_normal(520).astype(np.float32) * 0.05
     n_pre = n_post = 8 * B
     x = rng.standard_normal(n_pre + n_post).astype(np.float32)
-    eng = FFTConvolver(ir, B, maxr)
+    eng = FFTConvolver(ir, B, maxr, device="cpu")
     eng.process(x[:n_pre])
     eng.update(np.pad(ir2, (0, maxr - ir2.size)))   # active stays 6
     y = _np(eng.process(x[n_pre:]))
@@ -153,18 +155,19 @@ def test_block_size_rounded_to_power_of_two():
     rng = np.random.default_rng(3)
     ir = rng.standard_normal(256).astype(np.float32) * 0.1
     x = rng.standard_normal(512).astype(np.float32)
-    np.testing.assert_allclose(_np(FFTConvolver(ir, 100, 256).process(x)),
-                               _np(FFTConvolver(ir, 128, 256).process(x)), atol=1e-6)
+    np.testing.assert_allclose(_np(FFTConvolver(ir, 100, 256, device="cpu").process(x)),
+                               _np(FFTConvolver(ir, 128, 256, device="cpu").process(x)), atol=1e-6)
 
 
 def test_contract_violations_raise():
     with pytest.raises(ValueError):
-        FFTConvolver(np.ones(100, np.float32), 64, 50)
-    conv = FFTConvolver(np.ones(100, np.float32), 64, 100)
+        FFTConvolver(np.ones(100, np.float32), 64, 50, device="cpu")
+    conv = FFTConvolver(np.ones(100, np.float32), 64, 100, device="cpu")
     with pytest.raises(ValueError):
         conv.update(np.ones(101, np.float32))
     with pytest.raises(NotImplementedError):
-        TwoStageFFTConvolver(np.ones(64, np.float32), 64, 64).update(np.ones(64, np.float32))
+        TwoStageFFTConvolver(np.ones(64, np.float32), 64, 64,
+                             device="cpu").update(np.ones(64, np.float32))
 
 
 def test_fft_plan_wrapper_surface():

@@ -122,7 +122,7 @@ def test_two_stage_serving_contracts():
     b = 64
     ir = rng.standard_normal(9000).astype(np.float32) * 0.05
     x = rng.standard_normal(b * 80).astype(np.float32)
-    conv = CudaTwoStageConvolver(ir, b, len(ir))
+    conv = CudaTwoStageConvolver(ir, b, len(ir), device="cpu")
     for t in range(30):
         conv.process(x[t * b:(t + 1) * b])
     snap = conv.snapshot()
@@ -139,9 +139,10 @@ def test_two_stage_serving_contracts():
     with pytest.raises(ValueError):
         conv.process(x[:b - 1])
     with pytest.raises(ValueError):
-        CudaTwoStageConvolver(np.ones(64, np.float32), 64, 64)  # no tail0: use the uniform one
+        # no tail0: use the uniform one
+        CudaTwoStageConvolver(np.ones(64, np.float32), 64, 64, device="cpu")
     with pytest.raises(ValueError):
-        CudaTwoStageConvolver(ir, 48, len(ir))                  # not a power of two
+        CudaTwoStageConvolver(ir, 48, len(ir), device="cpu")  # not a power of two
     with pytest.raises(ValueError):
         PallasTwoStageConvolver(np.ones(64, np.float32), 64, 64)
 
@@ -179,7 +180,7 @@ def test_uniform_serving_matches_pallas():
     with pytest.raises(ValueError):
         conv.update(np.ones(len(ir) + 1, np.float32))
     with pytest.raises(ValueError, match="storage"):
-        CudaFFTConvolver(ir, b, len(ir), storage="int8")
+        CudaFFTConvolver(ir, b, len(ir), storage="int8", device="cpu")
 
 
 def test_kernel_wrappers_raise_off_cpu_and_cuda():

@@ -110,7 +110,7 @@ def test_b4_plain_long_calls_match_direct_convolution():
     b = 32
     ir = _mk(rng, b * 7)
     x = rng.standard_normal(b * 60).astype(np.float32)
-    conv = CudaStreamingConvolver(ir, b, len(ir), chunk=4)
+    conv = CudaStreamingConvolver(ir, b, len(ir), chunk=4, device="cpu")
     assert conv.cfg.seg_count == 8
     y = torch.cat([conv.process(x[lo * b:hi * b])
                    for lo, hi in [(0, 1), (1, 21), (21, 34), (34, 35), (35, 60)]])
@@ -131,10 +131,10 @@ def test_streaming_serving_matches_pallas():
     ir_b = _mk(rng, b * 10)
     x = rng.standard_normal(b * 56).astype(np.float32)
     ref = PallasStreamingConvolver(ir, b, len(ir), chunk=8, interpret=True)
-    conv = CudaStreamingConvolver(ir, b, len(ir), chunk=8)
+    conv = CudaStreamingConvolver(ir, b, len(ir), chunk=8, device="cpu")
     n = conv.cfg.seg_count
     assert n == ref.cfg.seg_count == 24
-    eng = FFTConvolver(ir, b, n * b)
+    eng = FFTConvolver(ir, b, n * b, device="cpu")
     for lo, hi in [(0, 20), (20, 21), (21, 56)]:  # > 2 ring periods
         y = conv.process(x[lo * b:hi * b]).numpy()
         np.testing.assert_allclose(y, ref.process(x[lo * b:hi * b]), atol=F32_ATOL,
@@ -163,8 +163,8 @@ def test_streaming_packed_matches_f32():
     ir = _mk(rng, b * 21 - 37)
     ir_b = _mk(rng, b * 10)
     x = rng.standard_normal(b * 40).astype(np.float32)
-    conv = CudaStreamingConvolver(ir, b, len(ir), chunk=8, storage="bf16_packed")
-    f32 = CudaStreamingConvolver(ir, b, len(ir), chunk=8)
+    conv = CudaStreamingConvolver(ir, b, len(ir), chunk=8, storage="bf16_packed", device="cpu")
+    f32 = CudaStreamingConvolver(ir, b, len(ir), chunk=8, device="cpu")
     ref = PallasStreamingConvolver(ir, b, len(ir), chunk=8, interpret=True,
                                    storage="bf16_packed")
     assert conv.consts.irrev.dtype == torch.bfloat16
@@ -186,7 +186,7 @@ def test_streaming_packed_matches_f32():
     np.testing.assert_array_equal(twin.process(x[:8 * b]).numpy(),
                                   conv.process(x[:8 * b]).numpy())
     with pytest.raises(ValueError, match="storage"):
-        CudaStreamingConvolver(ir, b, len(ir), storage="fp8")
+        CudaStreamingConvolver(ir, b, len(ir), storage="fp8", device="cpu")
 
 
 def test_streaming_contracts():
@@ -194,7 +194,7 @@ def test_streaming_contracts():
     b = 64
     ir = _mk(rng, b * 5)
     x = rng.standard_normal(b * 12).astype(np.float32)
-    conv = CudaStreamingConvolver(ir, b, len(ir), chunk=4)
+    conv = CudaStreamingConvolver(ir, b, len(ir), chunk=4, device="cpu")
     assert conv.cfg.seg_count == 8 and conv.chunk == 4
     with pytest.raises(ValueError, match="block-aligned"):
         conv.process(x[:b + 1])
@@ -202,9 +202,10 @@ def test_streaming_contracts():
     with pytest.raises(ValueError):
         conv.update(np.ones(len(ir) + 1, np.float32))  # past the declared maximum
     with pytest.raises(ValueError):
-        CudaStreamingConvolver(ir, b, len(ir) - 1)
+        CudaStreamingConvolver(ir, b, len(ir) - 1, device="cpu")
     # the TPU's VMEM limit is not carried: a 30 s IR's table builds
-    assert CudaStreamingConvolver(np.ones(10, np.float32), 128, 48000 * 30).cfg.seg_count \
+    assert CudaStreamingConvolver(np.ones(10, np.float32), 128, 48000 * 30,
+                                  device="cpu").cfg.seg_count \
         == 11264
     conv.process(x[:5 * b])
     snap = conv.snapshot()
@@ -251,9 +252,9 @@ def test_packed_serving_convolver():
     b = 64
     ir = _mk(rng, b * 12)
     x = rng.standard_normal(b * 24).astype(np.float32)
-    conv = CudaFFTConvolver(ir, b, len(ir), storage="bf16_packed")
+    conv = CudaFFTConvolver(ir, b, len(ir), storage="bf16_packed", device="cpu")
     ref = PallasFFTConvolver(ir, b, len(ir), interpret=True, storage="bf16_packed")
-    eng = FFTConvolver(ir, b, len(ir))
+    eng = FFTConvolver(ir, b, len(ir), device="cpu")
     assert conv.state.segments.dtype == torch.bfloat16
     y = torch.cat([conv.process(x[i * b:(i + 1) * b]) for i in range(16)]).numpy()
     y_ref = np.concatenate([ref.process(x[i * b:(i + 1) * b]) for i in range(16)])
@@ -291,9 +292,9 @@ def test_storage_auto_rule():
     for s in ("float32", "bf16_packed"):
         for streaming in (False, True):
             assert serving.resolve_storage(s, streaming) == s
-    uni = CudaFFTConvolver(ir, 128, len(ir), storage="auto")
+    uni = CudaFFTConvolver(ir, 128, len(ir), storage="auto", device="cpu")
     assert uni.storage == "float32" and uni.consts.ir.dtype == torch.complex64
-    st = CudaStreamingConvolver(ir, 128, len(ir), storage="auto")
+    st = CudaStreamingConvolver(ir, 128, len(ir), storage="auto", device="cpu")
     assert st.storage == "bf16_packed" and st.consts.irrev.dtype == torch.bfloat16
     assert st._step is cuda_stream.stream_packed
     with pytest.raises(ValueError, match="storage"):
