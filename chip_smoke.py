@@ -57,7 +57,7 @@ after; the flagship shape is block 128 and a 10 s 48 kHz IR.
     (B1, B1p, B2, B3) and 24 warm 64-block calls of B4 and B4p, each kernel
     wrapper called directly on its wrapper's operands: device microseconds
     per step (CUDA kernel events only) and CUDA kernels per step, gated to 1
-    for the one-launch kernels B2 and B3.
+    for the one-launch kernels B1, B1p, B2 and B3.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches, error and times: the
@@ -65,7 +65,8 @@ kernel and plain paths' best CUDA-event medians (``ms``, ``plain_ms``), the
 least time the card could take for the kernel's work from its shapes
 (``bound_ms``, ``bound_us``, ``bound_by``; formulas in :func:`bound`),
 ``library_ms`` (null: no single PyTorch call computes a step), and for B1-B4
-the profile's ``device_us`` and ``cuda_launches_per_step``.
+the profile's ``device_us`` and ``cuda_launches_per_step`` (1 for B1, B1p,
+B2 and B3, gated).
 Imports nothing of JAX.
 """
 
@@ -647,7 +648,7 @@ def main() -> None:
               f"{prof['cuda_launches_per_step']!r} CUDA kernels per step "
               f"({', '.join(prof['names'])}); bound {bounds[label]['bound_us']!r} us by "
               f"{bounds[label]['bound_by']}", flush=True)
-    for label in ("B2", "B3"):
+    for label in ("B1", "B1p", "B2", "B3"):
         # one kernel, once a step (the profiler may drop an event of 256)
         prof = profiled[label]
         if len(prof["names"]) != 1 or round(prof["cuda_launches_per_step"]) != 1:

@@ -27,9 +27,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the stream (a plain int would cut a 64-bit pointer), c_int for each int,
 # c_float for each float
 _SIGNATURES = {
-    # x, seg, ir, tw, partial, y, overlap; n, b, cur, rows, grid; stream
-    "fdl_b1_step": [_P] * 7 + [_I] * 5 + [_P],
-    "fdl_b1p_step": [_P] * 7 + [_I] * 5 + [_P],
+    # x, seg, ir, tw, partial, ticket, y, overlap; n, b, cur, rows, grid; stream
+    "fdl_b1_step": [_P] * 8 + [_I] * 5 + [_P],
+    "fdl_b1p_step": [_P] * 8 + [_I] * 5 + [_P],
     # x, seg, h_ir, t_ir, tw, partial, ticket, y, h_ov, t_ov, out0_row,
     # tail_in_row, pre0_row, pre_row; n, b, cur, rows, grid; stream
     "fdl_b2_step": [_P] * 14 + [_I] * 5 + [_P],

@@ -3,21 +3,15 @@
 // Spectra are complex64 rows of B+1 bins (float2, interleaved re/im), the
 // layout torch.fft.rfft gives for a 2B-point real transform.  The bf16
 // storage variants keep rows of __nv_bfloat162 (torch.bfloat16 [.., B+1, 2])
-// and widen each bin to float2 on load; all arithmetic is FP32.  The DFTs are
-// direct sums against a float32 twiddle table tw[m] = (cos, sin)(2 pi m / 2B)
-// built in float64 on the host; every sum runs in a fixed order, so a step
-// is bit-reproducible.  No TF32, no library transforms: plain FP32 FMA.
+// and widen each bin to float2 on load; all arithmetic is FP32.  Every sum
+// runs in a fixed order, so a step is bit-reproducible.  No TF32, no library
+// transforms: plain FP32 FMA.
 //
-// B1 and B1p split the MAC over the ring across thread blocks (mac_partial)
-// and finish in a second launch, as below; B2 and B3 run their step in one
-// launch with shared-memory FFTs (fdl_step.cuh).  In mac_partial block g
-// owns ring rows [g*rows, (g+1)*rows) and writes one partial spectrum per
-// IR table.  The block that owns row `cur` computes the fresh spectrum of the
-// new input block, uses it for that row and writes it into the ring; no
-// other block reads row `cur`, so the in-kernel ring write needs neither the
-// TPU kernel's algebraic stale-row correction nor a separate launch.  A
-// second, single-block launch reduces the partials in block order (no float
-// atomics), runs the inverse DFT and the overlap-add.
+// B1, B1p, B2 and B3 run their step in one launch with shared-memory FFTs
+// (fdl_step.cuh).  The direct DFTs below (rdft_padded, irdft: sums against a
+// float32 twiddle table tw[m] = (cos, sin)(2 pi m / 2B) built in float64 on
+// the host) and the launch shapes mac_threads and kFinalizeThreads serve B4
+// (b4_stream.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,6 +25,12 @@ constexpr int kFinalizeThreads = 256;
 __device__ __forceinline__ float2 load_c(const float2* p) { return *p; }
 __device__ __forceinline__ float2 load_c(const __nv_bfloat162* p) {
   return __bfloat1622float2(*p);
+}
+// The same through the read-only data path (__ldg), for tables no kernel
+// writes.
+__device__ __forceinline__ float2 ldg_c(const float2* p) { return __ldg(p); }
+__device__ __forceinline__ float2 ldg_c(const __nv_bfloat162* p) {
+  return __bfloat1622float2(__ldg(p));
 }
 __device__ __forceinline__ void store_c(float2* p, float2 v) { *p = v; }
 __device__ __forceinline__ void store_c(__nv_bfloat162* p, float2 v) {
@@ -93,75 +93,9 @@ __device__ __forceinline__ void irdft(const float2* spec, const float2* tw,
   }
 }
 
-// Partial MAC of ring rows [j0, j1) against NT IR tables:
-//   partial[t][g][k] = sum_j seg[j][k] * ir_t[(j - cur) mod n][k]
-// with row `cur` taken from the fresh spectrum of x (see the file note).
-// Ring and tables store bins as T; with bf16 storage the current block's
-// term stays FP32 on the ring side (the fresh spectrum), and the ring row
-// is written rounded.
-// Dynamic shared memory: (b+1 + 2b) float2 + b float.
-template <int NT, typename T = float2>
-__global__ void mac_partial(const float* __restrict__ x, T* seg,
-                            Tables<NT, T> ir, const float2* __restrict__ tw,
-                            float2* __restrict__ partial, int n, int b,
-                            int cur, int rows) {
-  extern __shared__ float4 smem[];
-  const int nb = b + 1;
-  float2* spec = reinterpret_cast<float2*>(smem);
-  float2* tws = spec + nb;
-  float* xs = reinterpret_cast<float*>(tws + 2 * b);
-
-  const int j0 = blockIdx.x * rows;
-  const int j1 = min(j0 + rows, n);
-  const bool owner = cur >= j0 && cur < j1;  // uniform across the block
-  if (owner) {
-    for (int i = threadIdx.x; i < 2 * b; i += blockDim.x) tws[i] = tw[i];
-    for (int i = threadIdx.x; i < b; i += blockDim.x) xs[i] = x[i];
-    __syncthreads();
-    rdft_padded(xs, tws, b, spec);
-    __syncthreads();
-  }
-
-  for (int k = threadIdx.x; k < nb; k += blockDim.x) {
-    float2 acc[NT];
-#pragma unroll
-    for (int t = 0; t < NT; ++t) acc[t] = make_float2(0.f, 0.f);
-    for (int j = j0; j < j1; ++j) {
-      const float2 s = (j == cur) ? spec[k] : load_c(seg + static_cast<size_t>(j) * nb + k);
-      int r = j - cur;
-      if (r < 0) r += n;
-#pragma unroll
-      for (int t = 0; t < NT; ++t)
-        cmac(acc[t], s, load_c(ir.p[t] + static_cast<size_t>(r) * nb + k));
-    }
-    if (owner) store_c(seg + static_cast<size_t>(cur) * nb + k, spec[k]);
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-      partial[(static_cast<size_t>(t) * gridDim.x + blockIdx.x) * nb + k] = acc[t];
-  }
-}
-
-// conv[k] = sum over g = 0..grid-1, in order, of partial[g][k].
-__device__ __forceinline__ void reduce_partials(const float2* __restrict__ partial,
-                                                int grid, int nb, float2* conv) {
-  for (int k = threadIdx.x; k < nb; k += blockDim.x) {
-    float2 a = make_float2(0.f, 0.f);
-    for (int g = 0; g < grid; ++g) {
-      const float2 p = partial[static_cast<size_t>(g) * nb + k];
-      a.x += p.x;
-      a.y += p.y;
-    }
-    conv[k] = a;
-  }
-}
-
 inline int mac_threads(int b) {
   const int warps = (b + 1 + 31) / 32;
   return warps * 32 < 256 ? warps * 32 : 256;
-}
-
-inline size_t mac_smem(int b) {
-  return static_cast<size_t>(b + 1 + 2 * b) * sizeof(float2) + b * sizeof(float);
 }
 
 // Kernels whose dynamic shared memory passes the 48 KB default need an

@@ -1,5 +1,8 @@
-// The one-launch block step shared by kernels B2 and B3: NT rolled-IR MACs
-// over one input-spectra ring, in a single CUDA launch.
+// The one-launch block step shared by kernels B1, B1p, B2 and B3: NT
+// rolled-IR MACs over one input-spectra ring, in a single CUDA launch.  Ring
+// and tables store their bins as T: float2 (complex64), or __nv_bfloat162
+// (B1p), widened to FP32 on load; the fresh ring row is stored rounded to
+// nearest even, and block 0's own term uses it unrounded.
 //
 // A step launches 1 + G thread blocks:
 // - Block 0 computes the fresh spectrum of the input block (the rFFT of the
@@ -41,8 +44,10 @@ constexpr int kStepMaxGroups = 8;
 // Ring rows a MAC thread loads in one round trip (1 + NT loads each): at
 // the flagship N = 3750 a thread has 5 rows (29 a block over 6 row groups).
 constexpr int kRowsPerTrip = 6;
-// Partial slots a finishing thread loads in one round trip (NT loads each).
-constexpr int kSlotsPerTrip = 8;
+// Partial slots a finishing thread loads in one round trip: 16 loads a
+// thread, NT a slot (16 slots at NT = 1, 8 at NT = 2).
+template <int NT>
+constexpr int kSlotsPerTrip = 16 / NT;
 
 // A step block, launched as blockDim (lanes, groups) so that no thread works
 // out its lane or row group by division: `lanes` threads a row group (one a
@@ -74,11 +79,11 @@ inline size_t step_smem(int b, int nt) {
   return most * sizeof(float2);
 }
 
-template <int NT>
+template <int NT, typename T = float2>
 struct StepArgs {
   const float* x;         // f32[b], the new input block
-  float2* seg;            // c64[n, b+1] ring; row cur is written
-  Tables<NT> ir;          // NT tables c64[n, b+1]
+  T* seg;                 // [n, b+1] ring of T; row cur is written
+  Tables<NT, T> ir;       // NT tables [n, b+1] of T
   const float2* tw;       // f32[2b, 2] twiddle table
   float2* partial;        // c64[NT, 1 + G, b+1] scratch
   unsigned int* ticket;   // the state's counter, 0 between steps
@@ -199,10 +204,11 @@ __device__ __forceinline__ void store_tw(float2* tws, int b, const float2 (&v)[k
 
 // Block 0: X = rFFT of x zero-padded to 2b (b + 1 bins) through a b-point
 // complex FFT of the packed pairs (x[2m], x[2m+1]) and the post-twiddle;
-// X goes into ring row cur and, times table row 0, into partial slot 0.
-// Its global loads are issued before its first shared store.
-template <int NT>
-__device__ void step_fresh(const StepArgs<NT>& a, int nparts, float2* sm) {
+// X goes into ring row cur (rounded to T) and, unrounded, times table row
+// 0 into partial slot 0.  Its global loads are issued before its first
+// shared store.
+template <int NT, typename T>
+__device__ void step_fresh(const StepArgs<NT, T>& a, int nparts, float2* sm) {
   const int b = a.b, nb = b + 1, tid = step_tid(), threads = step_threads();
   float2* tws = sm;
   float2* za = tws + 2 * b;
@@ -214,7 +220,7 @@ __device__ void step_fresh(const StepArgs<NT>& a, int nparts, float2* sm) {
   if (tid < pairs) xv = make_float2(a.x[2 * tid], 2 * tid + 1 < b ? a.x[2 * tid + 1] : 0.f);
   float2 h0[NT];  // table row 0 at bin tid, for block 0's partial
 #pragma unroll
-  for (int t = 0; t < NT; ++t) h0[t] = tid < nb ? __ldg(a.ir.p[t] + tid) : make_float2(0.f, 0.f);
+  for (int t = 0; t < NT; ++t) h0[t] = tid < nb ? ldg_c(a.ir.p[t] + tid) : make_float2(0.f, 0.f);
   store_tw(tws, b, twv);
   for (int m = tid; m < b; m += threads) za[m] = m < pairs ? xv : make_float2(0.f, 0.f);
   __syncthreads();
@@ -227,11 +233,11 @@ __device__ void step_fresh(const StepArgs<NT>& a, int nparts, float2* sm) {
     const float2 w = make_float2(tws[k].x, -tws[k].y);  // exp(-2 pi i k / 2b)
     const float2 wo = cmul(o, w);
     const float2 spec = make_float2(e.x + wo.x, e.y + wo.y);
-    a.seg[static_cast<size_t>(a.cur) * nb + k] = spec;
+    store_c(a.seg + static_cast<size_t>(a.cur) * nb + k, spec);
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
       float2 acc = make_float2(0.f, 0.f);
-      cmac(acc, spec, k == tid ? h0[t] : __ldg(a.ir.p[t] + k));
+      cmac(acc, spec, k == tid ? h0[t] : ldg_c(a.ir.p[t] + k));
       a.partial[static_cast<size_t>(t) * nparts * nb + k] = acc;
     }
   }
@@ -240,8 +246,8 @@ __device__ void step_fresh(const StepArgs<NT>& a, int nparts, float2* sm) {
 // Blocks 1..G: the MAC over ring rows i in [(blk-1) rows, blk rows) of the
 // n-1 rows other than cur (row j = i, or i + 1 past cur), each against table
 // row (j - cur) mod n; the partial of block blk goes into slot blk.
-template <int NT>
-__device__ void step_mac(const StepArgs<NT>& a, int nparts, float2* red) {
+template <int NT, typename T>
+__device__ void step_mac(const StepArgs<NT, T>& a, int nparts, float2* red) {
   const int nb = a.b + 1, n = a.n, cur = a.cur, lanes = blockDim.x, groups = blockDim.y;
   const int lane = threadIdx.x, g = threadIdx.y;
   const int blk = blockIdx.x;
@@ -262,9 +268,9 @@ __device__ void step_mac(const StepArgs<NT>& a, int nparts, float2* red) {
           const int ii = min(i + u * groups, i1 - 1);
           const int j = ii < cur ? ii : ii + 1;
           const int r = j > cur ? j - cur : j - cur + n;
-          s[u] = a.seg[static_cast<size_t>(j) * nb + k];
+          s[u] = load_c(a.seg + static_cast<size_t>(j) * nb + k);
 #pragma unroll
-          for (int t = 0; t < NT; ++t) h[u][t] = __ldg(a.ir.p[t] + static_cast<size_t>(r) * nb + k);
+          for (int t = 0; t < NT; ++t) h[u][t] = ldg_c(a.ir.p[t] + static_cast<size_t>(r) * nb + k);
         }
 #pragma unroll
         for (int u = 0; u < kRowsPerTrip; ++u) {
@@ -319,12 +325,12 @@ __device__ __forceinline__ bool last_to_arrive(unsigned int* ticket) {
 // The step up to the reduction: block 0's fresh spectrum or a MAC block's
 // rows, then the ticket.  True in the block that arrives last (uniform
 // across a block), which goes on with step_finish.
-template <int NT>
-__device__ bool step_arrive(const StepArgs<NT>& a, float2* sm) {
+template <int NT, typename T>
+__device__ bool step_arrive(const StepArgs<NT, T>& a, float2* sm) {
   if (blockIdx.x == 0) {
-    step_fresh<NT>(a, gridDim.x, sm);
+    step_fresh(a, gridDim.x, sm);
   } else {
-    step_mac<NT>(a, gridDim.x, sm);
+    step_mac(a, gridDim.x, sm);
   }
   return last_to_arrive(a.ticket);
 }
@@ -337,11 +343,12 @@ __device__ bool step_arrive(const StepArgs<NT>& a, float2* sm) {
 // The reduction keeps the MAC's thread mapping: lane = bin, for every table,
 // and row group g < a.runs sums run g of the slots, in slot order; a
 // fixed-order tree in shared memory then adds the runs.
-template <int NT>
-__device__ const float* step_finish(const StepArgs<NT>& a, float2* sm) {
+template <int NT, typename T>
+__device__ const float* step_finish(const StepArgs<NT, T>& a, float2* sm) {
   const int b = a.b, nb = b + 1, tid = step_tid(), nparts = gridDim.x;
   const int lanes = blockDim.x, lane = threadIdx.x, g = threadIdx.y;
   const int runs = a.runs, run = a.run;
+  constexpr int kSlots = kSlotsPerTrip<NT>;
   float2* tws = sm;
   float2* red = tws + 2 * b;          // [runs][NT][nb]
   float2* za = red + blockDim.y * NT * nb;
@@ -356,18 +363,18 @@ __device__ const float* step_finish(const StepArgs<NT>& a, float2* sm) {
       float2 sum[NT];
 #pragma unroll
       for (int t = 0; t < NT; ++t) sum[t] = make_float2(0.f, 0.f);
-      for (int s = s0; s < s1; s += kSlotsPerTrip) {
+      for (int s = s0; s < s1; s += kSlots) {
         // the slot clamped into the run, the adds past its end skipped
-        float2 v[kSlotsPerTrip][NT];
+        float2 v[kSlots][NT];
 #pragma unroll
-        for (int u = 0; u < kSlotsPerTrip; ++u) {
+        for (int u = 0; u < kSlots; ++u) {
           const size_t slot = min(s + u, s1 - 1);
 #pragma unroll
           for (int t = 0; t < NT; ++t)
             v[u][t] = __ldcg(a.partial + (static_cast<size_t>(t) * nparts + slot) * nb + k);
         }
 #pragma unroll
-        for (int u = 0; u < kSlotsPerTrip; ++u) {
+        for (int u = 0; u < kSlots; ++u) {
           if (s + u < s1) {
 #pragma unroll
             for (int t = 0; t < NT; ++t) {
@@ -423,12 +430,12 @@ constexpr int kEpiloguePerThread = 2;
 // step's shared memory (opted in past 48 KB); sets the finisher's runs: the
 // fewest that take each run's slots in one round trip, at most one a row
 // group.  Returns cudaGetLastError().
-template <int NT, typename K, typename... Args>
-inline cudaError_t launch_step(K kernel, StepArgs<NT> a, int grid, cudaStream_t s,
+template <int NT, typename T, typename K, typename... Args>
+inline cudaError_t launch_step(K kernel, StepArgs<NT, T> a, int grid, cudaStream_t s,
                                Args... args) {
   const StepShape sh = step_shape(a.b);
   const int nparts = 1 + grid;
-  const int runs = (nparts + kSlotsPerTrip - 1) / kSlotsPerTrip;
+  const int runs = (nparts + kSlotsPerTrip<NT> - 1) / kSlotsPerTrip<NT>;
   a.runs = runs < sh.groups ? runs : sh.groups;
   a.run = (nparts + a.runs - 1) / a.runs;
   const size_t smem = step_smem(a.b, NT);

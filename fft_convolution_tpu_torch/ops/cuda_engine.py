@@ -2,18 +2,19 @@
 Hopper (``csrc/b1_uniform_step.cu``) — counterpart of
 ``fft_convolution_tpu/ops/pallas_engine.py`` (``_kernel`` via ``block_step``).
 
-One step per audio block: the forward real DFT of the new block, its write
+One step per audio block: the forward real FFT of the new block, its write
 into ring row ``current``, the frequency-delay-line MAC of the ring against
-the IR table rolled by ``current``, the inverse DFT, the overlap-add, and
+the IR table rolled by ``current``, the inverse FFT, the overlap-add, and
 ``current`` decremented.  Precondition, as on the TPU: a full ring
 (``active_segs == seg_count``), so every row pairs with one table row.
 
 :func:`block_step` launches the kernel for CUDA tensors and takes the plain
 PyTorch version :func:`block_step_plain` only for CPU tensors; it never falls
-back.  ``block_step.launches`` counts kernel launches (one per step, made of
-two CUDA launches: the split MAC and the reduction with the inverse DFT).
-The state is updated in place: the kernel writes the ring row and the
-overlap where they lie.
+back.  ``block_step.launches`` counts steps launched (one CUDA launch each,
+over ``csrc/fdl_step.cuh`` at one table).  The state is updated in place:
+the kernel writes the ring row and the overlap where they lie; the state
+also carries the kernel's arrival counter (``ticket``, see
+:func:`step_ticket`).
 
 Kernel B1p (:func:`block_step_packed`, ``fdl_b1p_step`` in the same source)
 is the step over bf16 storage — counterpart of ``pallas_engine.py``'s
@@ -37,8 +38,8 @@ from ..models.uniform import UniformConfig, UniformState
 from .fft import twiddles
 
 # The kernels keep the twiddle table and their transforms' buffers in shared
-# memory (B1: a direct O(B^2) DFT; B2, B3: FFTs, 164 KB at 2048 of the SM's
-# 227 KB); 2048 keeps them inside one SM.
+# memory (B1-B3: FFTs, up to 164 KB at 2048 of the SM's 227 KB); 2048 keeps
+# them inside one SM.
 MAX_BLOCK = 2048
 
 
@@ -77,6 +78,7 @@ class FDLState:
     segments: torch.Tensor  # input-spectra ring, in the table's storage
     overlap: torch.Tensor   # f32 [B]
     current: int            # ring head
+    ticket: torch.Tensor | None = None  # int32 [1] arrival counter, made at the first launch
 
     def clone(self) -> "FDLState":
         return FDLState(self.segments.clone(), self.overlap.clone(), self.current)
@@ -102,16 +104,8 @@ def to_uniform(fstate: FDLState, template: UniformState) -> UniformState:
     return out
 
 
-def split_rows(n: int) -> tuple[int, int]:
-    """``(rows, grid)``: ring rows per thread block of the split MAC and the
-    number of blocks — about one block per SM of an H100 (132), at least
-    four rows each so the reduction stays short."""
-    rows = max(4, math.ceil(n / 132))
-    return rows, math.ceil(n / rows)
-
-
 def step_split(n: int) -> tuple[int, int]:
-    """``(rows, grid)`` of the one-launch kernels B2 and B3: the ``n - 1``
+    """``(rows, grid)`` of the one-launch kernels B1-B3: the ``n - 1``
     ring rows other than ``current`` in ``grid`` MAC blocks of ``rows`` rows,
     beside the block that computes the fresh spectrum — about one block per
     SM of an H100 (132) in all, at least 8 rows each.  ``grid`` is 0 for a
@@ -121,7 +115,7 @@ def step_split(n: int) -> tuple[int, int]:
 
 
 def step_ticket(state, device: torch.device) -> torch.Tensor:
-    """The arrival counter of a one-launch kernel (B2, B3), kept in
+    """The arrival counter of a one-launch kernel (B1-B3), kept in
     ``state.ticket``: one 32-bit integer on the card, 0 between steps (the
     last thread block of a step wraps it back).  A state gets a zeroed one at
     its first launch; fresh states (init, ``reset``) and clones (``restore``)
@@ -191,12 +185,13 @@ def _launch(name: str, dtype: torch.dtype, consts: FDLConsts, state: FDLState,
     require(state.overlap, "overlap", (b,), torch.float32, dev)
     if not 0 <= state.current < n:
         raise ValueError(f"current {state.current} outside the ring of {n}")
-    rows, grid = split_rows(n)
-    partial = torch.empty((grid, nb), dtype=torch.complex64, device=dev)
+    ticket = step_ticket(state, dev)
+    rows, grid = step_split(n)
+    partial = torch.empty((1, 1 + grid, nb), dtype=torch.complex64, device=dev)
     y = torch.empty(b, device=dev)
     err = getattr(_build.library(), name)(
         x.data_ptr(), state.segments.data_ptr(), consts.ir.data_ptr(),
-        consts.tw.data_ptr(), partial.data_ptr(), y.data_ptr(),
+        consts.tw.data_ptr(), partial.data_ptr(), ticket.data_ptr(), y.data_ptr(),
         state.overlap.data_ptr(), n, b, state.current, rows, grid,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, name)

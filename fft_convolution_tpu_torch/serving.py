@@ -41,9 +41,11 @@ def resolve_storage(storage: str, streaming: bool) -> str:
     (``streaming``) reads its whole table once per 16-block tile of a
     device-bound call: with a 30 s IR at block 128, 64-block calls took
     0.230 ms with the f32 table and 0.189 ms with bf16.  The per-block
-    wrapper is host-bound: at the 10 s flagship B1p and B1 both took 0.067
-    ms per block, so bf16 would cost precision and buy nothing.  (CUDA-event
-    medians, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6.)
+    wrapper is host-bound: at the 10 s flagship a one-launch step takes 8.3
+    (B1p) and 8.7 (B1) us on the card inside a call of 0.039-0.041 (B1p)
+    and 0.041-0.064 ms (B1), so bf16 would cost precision and buy nothing.
+    (CUDA-event medians and profiler device time, NVIDIA H100 80GB HBM3,
+    700.00 W; PERF.md §6.)
     """
     if storage == "auto":
         return "bf16_packed" if streaming else "float32"
@@ -173,6 +175,8 @@ class CudaFFTConvolver:
         self.state.overlap.zero_()
 
     def reset(self) -> None:
+        # in place: the state keeps its own arrival counter (0 between steps);
+        # snapshots and clones start without one
         self.state.segments.zero_()
         self.state.overlap.zero_()
         self.state.current = 0

@@ -9,10 +9,12 @@ checkout), builds its kernels, makes the flagship serving wrappers of
 ``chip_smoke.py`` (block 128, a random 10 s 48 kHz IR, seed 0) and prints
 one JSON line: the card's name and power limit, and for B1, B1p, B2 and B3
 the device microseconds and CUDA kernels per step from a ``torch.profiler``
-window over 256 warm steps (``chip_smoke.profile_steps``), and the median
-CUDA-event span of one ``process`` call (``chip_smoke.latency``).  To
-compare two checkouts on one card, run both in one machine session, in
-turns (parent, change, change, parent).
+window over 256 warm steps (``chip_smoke.profile_steps``), the names of the
+CUDA kernels the window saw (one kernel a step for each of the four in this
+checkout; an older checkout may show two), and the median CUDA-event span
+of one ``process`` call (``chip_smoke.latency``).  To compare two checkouts
+on one card, run both in one machine session, in turns (parent, change,
+change, parent).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Kernels B1, B1p, B2, B3, B4 and B5 on the card against their plain
-PyTorch versions.
+PyTorch versions; B1-B3 also for their arrival counters (one launch a
+step).
 
 These need an NVIDIA card with nvcc (``sm_90a``) and skip elsewhere.  The
 repository's ``tests/conftest.py`` imports JAX; where JAX is not installed,
@@ -52,8 +53,12 @@ def _b1_operands(b, n, dev, seed):
     return cuda_engine.from_uniform(cfg, st), rng
 
 
-@pytest.mark.parametrize("b,n", [(64, 37), (128, 5), (32, 1), (128, 600), (2048, 3)])
+@pytest.mark.parametrize("b,n", [(64, 37), (128, 5), (32, 1), (128, 600), (2048, 3),
+                                 (128, 3750)])
 def test_b1_kernel_matches_plain(dev, b, n):
+    """B1 through n + 3 steps (the ring wraps; at n = 1 there is no MAC
+    block; at the flagship n = 3750, 130 MAC blocks and one ticket a step):
+    the output every step, the arrival counter back at 0 after each."""
     (consts, st), rng = _b1_operands(b, n, dev, 70 + n)
     plain = st.clone()
     for t in range(n + 3):  # through the ring's wrap
@@ -62,7 +67,7 @@ def test_b1_kernel_matches_plain(dev, b, n):
         yp = cuda_engine.block_step_plain(consts, plain, x)
         torch.cuda.synchronize()
         _close(y, yp, f"block {t}")
-        assert st.current == plain.current
+        assert st.current == plain.current and int(st.ticket) == 0, f"block {t}"
     _close(st.segments, plain.segments, "ring")
     _close(st.overlap, plain.overlap, "overlap")
 
@@ -168,11 +173,13 @@ def _spectra(rng, n, b, dev, scale=0.1):
     return torch.fft.rfft(torch.from_numpy(taps), n=2 * b).to(dev)
 
 
-@pytest.mark.parametrize("b,n", [(64, 37), (128, 5), (32, 1), (128, 600), (2048, 3)])
+@pytest.mark.parametrize("b,n", [(64, 37), (128, 5), (32, 1), (128, 600), (2048, 3),
+                                 (128, 3750)])
 def test_b1p_kernel_matches_plain(dev, b, n):
     """B1p from the same bf16 state each step: the output to the f32
-    tolerance, the ring row written to within one bf16 step (the two DFTs
-    may round a bin to neighbouring bf16 values)."""
+    tolerance, the ring row written to within one bf16 step (the two
+    transforms may round a bin to neighbouring bf16 values), the arrival
+    counter back at 0."""
     rng = np.random.default_rng(100 + n)
     ir = (rng.standard_normal(b * n) * 0.1).astype(np.float32)
     cfg, ust = uniform.init(torch.from_numpy(ir).to(dev), b, len(ir), dev)
@@ -187,7 +194,7 @@ def test_b1p_kernel_matches_plain(dev, b, n):
         _close(y, yp, f"block {t}")
         row, prow = cuda_engine.as_c64(st.segments[cur]), cuda_engine.as_c64(plain.segments[cur])
         assert float((row - prow).abs().max()) <= 2 ** -7 * float(prow.abs().max())
-        assert st.current == plain.current
+        assert st.current == plain.current and int(st.ticket) == 0, f"block {t}"
         _close(st.overlap, plain.overlap, "overlap")
 
 
@@ -225,10 +232,17 @@ def _check_b3(st, plain, y, yp, what):
 
 
 def test_one_launch_kernels_interleave_with_their_own_counters(dev):
-    """Two B2 states and a B3 state stepped in turn on one stream, none
-    synchronised between launches: each state keeps its own arrival
-    counter, and each follows its plain version."""
+    """A B1 state, a B1p state, two B2 states and a B3 state stepped in turn
+    on one stream, none synchronised between launches: each state keeps its
+    own arrival counter, and each follows its plain version."""
     rng = np.random.default_rng(115)
+    b1 = []  # (step, consts, state, plain state) for B1 and B1p
+    for storage, step, n1 in (("float32", cuda_engine.block_step, 150),
+                              ("bf16_packed", cuda_engine.block_step_packed, 70)):
+        ir = (rng.standard_normal(64 * n1) * 0.1).astype(np.float32)
+        ucfg, ust = uniform.init(torch.from_numpy(ir).to(dev), 64, len(ir), dev)
+        consts, st = cuda_engine.from_uniform(ucfg, ust, storage)
+        b1.append((step, consts, st, st.clone()))
     b2 = []
     for b, n in ((64, 40), (128, 17)):
         consts, bufs = _b2_operands(rng, b, n, dev)
@@ -250,12 +264,22 @@ def test_one_launch_kernels_interleave_with_their_own_counters(dev):
         x = torch.from_numpy(rng.standard_normal(b).astype(np.float32)).to(dev)
         cf, y = cuda_crossfade.block_step(xc, xs, cfg, cf, x)
         cfp, yp = cuda_crossfade.block_step_plain(xc, xp, cfg, cfp, x)
+        outs1 = []
+        for step, consts, st, plain in b1:
+            x1 = torch.from_numpy(rng.standard_normal(64).astype(np.float32)).to(dev)
+            if not st.segments.is_complex():
+                plain = st.clone()  # bf16: the plain step from the kernel's state
+            outs1.append((step.__name__, st, plain, step(consts, st, x1),
+                          cuda_engine.block_step_plain(consts, plain, x1)))
         torch.cuda.synchronize()
         for (consts, bufs, pbufs, st, plain), (y2, yp2) in zip(b2, outs):
             _check_b2(st, plain, bufs, pbufs, y2, yp2, f"B2 n={st.segments.shape[0]} block {t}")
         _check_b3(xs, xp, y, yp, f"B3 block {t}")
-    tickets = [st.ticket for *_, st, _ in b2] + [xs.ticket]
-    assert len({tk.data_ptr() for tk in tickets}) == 3
+        for name, st, plain, y1, yp1 in outs1:
+            _close(y1, yp1, f"{name} block {t}")
+            assert st.current == plain.current and int(st.ticket) == 0, f"{name} block {t}"
+    tickets = [st.ticket for _, _, st, _ in b1] + [st.ticket for *_, st, _ in b2] + [xs.ticket]
+    assert len({tk.data_ptr() for tk in tickets}) == 5
 
 
 @pytest.mark.parametrize("packed", [False, True], ids=["f32", "bf16"])

@@ -41,7 +41,7 @@ def test_b1_plain_matches_pallas_from_carried_state():
         jp, _ = pallas_engine.block_step(cfg, jconsts, jp, jnp.asarray(
             rng.standard_normal(b).astype(np.float32)), interpret=True)
     consts, st = interop.fdl(jconsts, jp)
-    assert st.current == int(jp.current[0]) == 2
+    assert st.current == int(jp.current[0]) == 2 and st.ticket is None
     for t in range(8):  # through the ring's wrap
         x = rng.standard_normal(b).astype(np.float32)
         jp, yj = pallas_engine.block_step(cfg, jconsts, jp, jnp.asarray(x), interpret=True)
@@ -181,6 +181,47 @@ def test_uniform_serving_matches_pallas():
         conv.update(np.ones(len(ir) + 1, np.float32))
     with pytest.raises(ValueError, match="storage"):
         CudaFFTConvolver(ir, b, len(ir), storage="int8", device="cpu")
+
+
+def test_uniform_serving_copies_start_without_a_ticket():
+    """Kernels B1 and B1p keep an arrival counter in the state, made at its
+    first launch; no two states share one: ``FDLState.clone``,
+    ``CudaFFTConvolver.clone``, ``snapshot`` and ``restore`` hand out states
+    without one, and ``reset`` keeps the state's own."""
+    rng = np.random.default_rng(35)
+    b = 64
+    ir = rng.standard_normal(b * 3).astype(np.float32) * 0.1
+    conv = CudaFFTConvolver(ir, b, len(ir), device="cpu")
+    assert conv.state.ticket is None
+    cpu = torch.device("cpu")
+    ticket = cuda_engine.step_ticket(conv.state, cpu)  # as the first launch makes it
+    assert ticket.dtype == torch.int32 and int(ticket) == 0
+    assert cuda_engine.step_ticket(conv.state, cpu) is ticket
+    copy = conv.state.clone()
+    assert copy.ticket is None
+    assert cuda_engine.step_ticket(copy, cpu).data_ptr() != ticket.data_ptr()
+    twin = conv.clone()
+    assert twin.state.ticket is None and conv.state.ticket is ticket
+    snap = conv.snapshot()
+    assert snap.ticket is None
+    conv.reset()
+    assert conv.state.ticket is ticket
+    conv.restore(snap)
+    assert conv.state.ticket is None and conv.state is not snap
+
+
+@pytest.mark.parametrize("lo", range(1, 11265, 1024))
+def test_step_split_covers_the_other_rows(lo):
+    """``step_split(n)`` for every n from 1 to 11264 (the 30 s stream's
+    ring), 1024 a case: MAC block g covers rows [(g-1) rows, g rows) of the
+    n - 1 rows other than ``current``; together they cover all of them, the
+    last is not empty, each has at least 8 rows, and with the block that
+    computes the fresh spectrum there are at most 132 blocks (one an SM of
+    an H100)."""
+    for n in range(lo, min(lo + 1024, 11265)):
+        rows, grid = cuda_engine.step_split(n)
+        assert rows >= 8 and 1 + grid <= 132, n
+        assert (grid - 1) * rows < n - 1 <= grid * rows, n
 
 
 def test_kernel_wrappers_raise_off_cpu_and_cuda():

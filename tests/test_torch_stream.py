@@ -233,7 +233,7 @@ def test_b1p_plain_matches_pallas_from_carried_state():
             rng.standard_normal(b).astype(np.float32)), interpret=True)
     consts, st = interop.fdl_packed(jconsts, jp)
     assert st.segments.dtype == consts.ir.dtype == torch.bfloat16
-    assert st.current == int(jp.current[0]) == 3
+    assert st.current == int(jp.current[0]) == 3 and st.ticket is None
     for t in range(8):
         x = rng.standard_normal(b).astype(np.float32)
         jp, jy = pallas_engine.block_step_packed(cfg, jconsts, jp, jnp.asarray(x),
