@@ -24,16 +24,19 @@ after; the flagship shape is block 128 and a 10 s 48 kHz IR.
    mid-fade (the pending slot); against its plain path (1e-4), and against
    float64 convolutions with the first IR before the update and with the
    last IR once both fades have ended (1e-4);
-7. ``CudaStreamingConvolver`` (kernel B4) with a 30 s IR (11264 segments
-   after padding to the 512 chunk) in calls of 64 blocks until the ring has
-   wrapped: f32 table against its plain path and ``scipy.signal.fftconvolve``
-   in float64 (1e-4); bf16 table against its plain path (1e-4) and the f32
-   path (5e-3 of the output scale);
+7. ``CudaStreamingConvolver`` (kernel B4: three CUDA launches a call,
+   forward FFTs, the MAC fed from shared memory by asynchronous copies, and
+   the finish) with a 30 s IR (11264 segments after padding to the 512
+   chunk) in calls of 64 blocks until the ring has wrapped: f32 table
+   against its plain path and ``scipy.signal.fftconvolve`` in float64
+   (1e-4); bf16 table against its plain path (1e-4) and the f32 path (5e-3
+   of the output scale);
 8. ``CudaFFTConvolver(storage="bf16_packed")`` (kernel B1p) at the flagship
    shape for 128 blocks, against its plain path (1e-4) and the f32 kernel
    path (5e-3 of the output scale);
-9. latency of B3 and B1p per block and of B4 per 64-block call, kernel path
-   against plain path (recorded, not gated);
+9. latency of B3 and B1p per block and of B4 and B4p per 64-block call
+   (and per block: a call over 64), kernel path against plain path
+   (recorded, not gated);
 10. ``ReverbFarm`` (kernel B5, f32 tail) at the JAX farm's benchmark shape:
     128 voices of random 60 s 48 kHz IRs (scale 0.002, seeded on the card),
     block 128 — tail block 32768, period 256, head and tail0 256 segments,
@@ -56,8 +59,10 @@ after; the flagship shape is block 128 and a 10 s 48 kHz IR.
 14. a ``torch.profiler`` window over 256 warm steps of each per-block kernel
     (B1, B1p, B2, B3) and 24 warm 64-block calls of B4 and B4p, each kernel
     wrapper called directly on its wrapper's operands: device microseconds
-    per step (CUDA kernel events only) and CUDA kernels per step, gated to 1
-    for the one-launch kernels B1, B1p, B2 and B3.
+    per step (CUDA kernel events only), the same by CUDA kernel name (B4's
+    forward, MAC and finish apart), and CUDA kernels per step, gated to 1
+    for the one-launch kernels B1, B1p, B2 and B3 and to 3 (three kernels,
+    once each) for B4 and B4p.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches, error and times: the
@@ -65,8 +70,9 @@ kernel and plain paths' best CUDA-event medians (``ms``, ``plain_ms``), the
 least time the card could take for the kernel's work from its shapes
 (``bound_ms``, ``bound_us``, ``bound_by``; formulas in :func:`bound`),
 ``library_ms`` (null: no single PyTorch call computes a step), and for B1-B4
-the profile's ``device_us`` and ``cuda_launches_per_step`` (1 for B1, B1p,
-B2 and B3, gated).
+the profile's ``device_us``, ``device_us_by_kernel`` and
+``cuda_launches_per_step`` (1 for B1, B1p, B2 and B3, 3 for B4 and B4p,
+gated).
 Imports nothing of JAX.
 """
 
@@ -205,9 +211,12 @@ def profile_steps(step, steps: int, warmup: int) -> dict:
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and not e.name.startswith(("Memcpy", "Memset"))]
-    names = sorted({e.name for e in kernels})
-    return {"device_us": sum(e.time_range.elapsed_us() for e in kernels) / steps,
-            "cuda_launches_per_step": len(kernels) / steps, "names": names}
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / steps
+    return {"device_us": sum(by_name.values()),
+            "cuda_launches_per_step": len(kernels) / steps, "names": sorted(by_name),
+            "by_name": by_name}
 
 
 def latency(conv, xs: torch.Tensor, warmup: int = WARMUP_BLOCKS,
@@ -215,18 +224,23 @@ def latency(conv, xs: torch.Tensor, warmup: int = WARMUP_BLOCKS,
     """Per-call latency of ``conv.process`` on inputs already on the card.
     ``event_ms``: CUDA events around each call, no synchronisation in the
     loop (device time from the call's start to its last kernel, host launch
-    gaps included).  ``sync_ms``: host clock around each call plus a
-    synchronise (the real-time callback shape)."""
+    gaps included).  ``enqueue_ms``: host clock around each of those calls
+    (the host's work to issue one; where it exceeds the device's time a
+    call, the host sets ``event_ms``).  ``sync_ms``: host clock around each
+    call plus a synchronise (the real-time callback shape)."""
     for xb in xs[:warmup]:
         conv.process(xb)
     torch.cuda.synchronize()
     timed = xs[warmup:warmup + timed_n]
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in timed]
+    enqueue = []
     for (start, end), xb in zip(events, timed):
+        t0 = time.perf_counter()
         start.record()
         conv.process(xb)
         end.record()
+        enqueue.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     ev = [s.elapsed_time(e) for s, e in events]
     sync = []
@@ -236,7 +250,8 @@ def latency(conv, xs: torch.Tensor, warmup: int = WARMUP_BLOCKS,
         torch.cuda.synchronize()
         sync.append((time.perf_counter() - t0) * 1e3)
     return {"event_ms": statistics.median(ev), "event_max_ms": max(ev),
-            "sync_ms": statistics.median(sync), "blocks": len(ev)}
+            "enqueue_ms": statistics.median(enqueue), "sync_ms": statistics.median(sync),
+            "blocks": len(ev)}
 
 
 def main() -> None:
@@ -360,9 +375,9 @@ def main() -> None:
         for kind in ("kernel", "plain"):
             for r in res[kind]:
                 print(f"latency {label} {kind}: event median {r['event_ms']!r} ms, "
-                      f"event max {r['event_max_ms']!r} ms, sync median "
-                      f"{r['sync_ms']!r} ms per {unit} over {r['blocks']} {unit}s",
-                      flush=True)
+                      f"event max {r['event_max_ms']!r} ms, enqueue median "
+                      f"{r['enqueue_ms']!r} ms, sync median {r['sync_ms']!r} ms per {unit} "
+                      f"over {r['blocks']} {unit}s", flush=True)
 
     compare("B1", uni, uni_plain, xs)
     compare("B2", two, two_plain, xs)
@@ -644,16 +659,17 @@ def main() -> None:
             PROFILE_CALLS, PROFILE_CALL_WARMUP)
         bounds[label] = bound(nbytes, flops)
     for label, prof in profiled.items():
+        per_kernel = ", ".join(f"{name} {us!r}" for name, us in prof["by_name"].items())
         print(f"profile {label}: {prof['device_us']!r} device us and "
               f"{prof['cuda_launches_per_step']!r} CUDA kernels per step "
-              f"({', '.join(prof['names'])}); bound {bounds[label]['bound_us']!r} us by "
-              f"{bounds[label]['bound_by']}", flush=True)
-    for label in ("B1", "B1p", "B2", "B3"):
-        # one kernel, once a step (the profiler may drop an event of 256)
+              f"(device us by kernel: {per_kernel}); bound {bounds[label]['bound_us']!r} us "
+              f"by {bounds[label]['bound_by']}", flush=True)
+    for label, want in (("B1", 1), ("B1p", 1), ("B2", 1), ("B3", 1), ("B4", 3), ("B4p", 3)):
+        # `want` kernels, each once a step (the profiler may drop an event of 256)
         prof = profiled[label]
-        if len(prof["names"]) != 1 or round(prof["cuda_launches_per_step"]) != 1:
+        if len(prof["names"]) != want or round(prof["cuda_launches_per_step"]) != want:
             fail(f"{label}: {prof['cuda_launches_per_step']!r} CUDA kernels per step "
-                 f"({prof['names']}), not one launch of one kernel")
+                 f"({prof['names']}), not {want} launches of {want} kernels")
     phase_done("14 device profile")
 
     def best(label, kind, key="event_ms"):
@@ -668,6 +684,7 @@ def main() -> None:
                "ms": best(timed, "kernel"), "plain_ms": best(timed, "plain")}
         if label in profiled:
             out.update(bounds[label], device_us=profiled[label]["device_us"],
+                       device_us_by_kernel=profiled[label]["by_name"],
                        cuda_launches_per_step=profiled[label]["cuda_launches_per_step"])
         else:  # B5: the step alone at T = 8
             step_ms, bd = farm_step[label]

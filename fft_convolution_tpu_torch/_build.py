@@ -36,10 +36,10 @@ _SIGNATURES = {
     # x, seg, ir_a, ir_b, tw, partial, ticket, y, ov_a, ov_b; n, b, cur, rows,
     # grid, approaching, is_b, counter, fading, mixer; mix_value, step; stream
     "fdl_b3_step": [_P] * 10 + [_I] * 10 + [_F] * 2 + [_P],
-    # x, spec, ring, irrev, tw, partial, tails, y, overlap; n, b, T, w0,
-    # rows, splits; stream
-    "fdl_b4_stream": [_P] * 9 + [_I] * 6 + [_P],
-    "fdl_b4p_stream": [_P] * 9 + [_I] * 6 + [_P],
+    # x, ring, irrev, tw, scratch, y, overlap; n, b, T, w0, kb, groups,
+    # ring_rows, rows, splits; stream
+    "fdl_b4_stream": [_P] * 7 + [_I] * 9 + [_P],
+    "fdl_b4p_stream": [_P] * 7 + [_I] * 9 + [_P],
     # ring, table, specs, convs, pre; lanes, n, q, T; stream
     "fdl_b5_step": [_P] * 5 + [_I] * 4 + [_P],
     "fdl_b5p_step": [_P] * 5 + [_I] * 4 + [_P],

@@ -25,8 +25,9 @@
 //
 // The FFTs are Stockham radix-4 (one radix-2 stage when log2 b is odd) over
 // b complex points, with the real-to-complex post-twiddle (forward) and
-// pre-twiddle (inverse) from the twiddle table tw[m] = (cos, sin)(2 pi m / 2b):
-// O(b log b) where the direct sums of fdl_common.cuh are O(b^2).  Each runs on
+// pre-twiddle (inverse) from the twiddle table tw[m] = (cos, sin)(2 pi m / 2b),
+// built in float64 on the host; B4 (b4_stream.cu) runs the same transforms
+// and twiddles in its own launches.  Each runs on
 // its own team of b/4 threads (one warp at b <= 128) that synchronise only
 // among themselves; a block-wide barrier a stage, with every other warp of
 // the block working out the stage's indices too, cost ~0.9 us a stage at
@@ -101,7 +102,7 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 w) {
 
 // Threads a transform of n points: n/4 (one radix-4 butterfly each), at
 // least a warp, at most 512.
-__device__ __forceinline__ int fft_team(int n) {
+__host__ __device__ __forceinline__ int fft_team(int n) {
   const int t = n / 4;
   return t < 32 ? 32 : (t > 512 ? 512 : t);
 }
@@ -180,6 +181,35 @@ __device__ float2* fft_shared(float2* a, float2* bb, int n, int count, const flo
   return ((log_n + 1) / 2) % 2 == 0 ? a : bb;  // one buffer swap a stage
 }
 
+// Post-twiddle of the forward real transform: bin k (0..b) of the rFFT of 2b
+// real samples, of which z is the b-point FFT of the packed pairs
+// (x[2m], x[2m+1]).  tws: the twiddle table (cos, sin)(2 pi m / 2b).
+__device__ __forceinline__ float2 real_post_twiddle(const float2* z, const float2* tws, int b,
+                                                    int k) {
+  const float2 zk = z[k & (b - 1)];
+  const float2 zm = z[(b - k) & (b - 1)];  // conj(zm) pairs with zk
+  const float2 e = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
+  const float2 o = make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
+  const float2 w = make_float2(tws[k].x, -tws[k].y);  // exp(-2 pi i k / 2b)
+  const float2 wo = cmul(o, w);
+  return make_float2(e.x + wo.x, e.y + wo.y);
+}
+
+// Pre-twiddle of the inverse real transform: element k (0..b-1) of the
+// b-point input whose inverse FFT holds the 2b real samples (unscaled) of
+// the spectrum x[0..b] as pairs: Z[k] = (X[k] + conj X[b-k]) + i (X[k] -
+// conj X[b-k]) exp(2 pi i k / 2b), with the imaginary parts of DC and
+// Nyquist not read, as in a C2R transform.
+__device__ __forceinline__ float2 real_pre_twiddle(const float2* x, const float2* tws, int b,
+                                                   int k) {
+  float2 xk = x[k];
+  float2 xm = x[b - k];
+  if (k == 0) xk.y = xm.y = 0.f;
+  const float2 s = make_float2(xk.x + xm.x, xk.y - xm.y);
+  const float2 p = cmul(make_float2(xk.x - xm.x, xk.y + xm.y), tws[k]);
+  return make_float2(s.x - p.y, s.y + p.x);
+}
+
 // Global loads a thread stages into shared memory: the twiddle table (2b
 // entries) over at least 1024 threads at b = 2048 is 4 a thread.
 constexpr int kTwPerThread = 4;
@@ -226,13 +256,7 @@ __device__ void step_fresh(const StepArgs<NT, T>& a, int nparts, float2* sm) {
   __syncthreads();
   const float2* z = fft_shared<false>(za, zb, b, 1, tws);
   for (int k = tid; k < nb; k += threads) {
-    const float2 zk = z[k & (b - 1)];
-    const float2 zm = z[(b - k) & (b - 1)];  // conj(zm) pairs with zk
-    const float2 e = make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
-    const float2 o = make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
-    const float2 w = make_float2(tws[k].x, -tws[k].y);  // exp(-2 pi i k / 2b)
-    const float2 wo = cmul(o, w);
-    const float2 spec = make_float2(e.x + wo.x, e.y + wo.y);
+    const float2 spec = real_post_twiddle(z, tws, b, k);
     store_c(a.seg + static_cast<size_t>(a.cur) * nb + k, spec);
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
@@ -406,17 +430,10 @@ __device__ const float* step_finish(const StepArgs<NT, T>& a, float2* sm) {
     __syncthreads();
   }
 
-  // pre-twiddle: Z[k] = (X[k] + conj X[b-k]) + i (X[k] - conj X[b-k]) exp(2 pi i k / 2b),
-  // with the imaginary parts of DC and Nyquist not read, as in a C2R transform
   const int log_b = __ffs(b) - 1;
   for (int idx = tid; idx < NT * b; idx += step_threads()) {
     const int t = idx >> log_b, k = idx & (b - 1);
-    float2 xk = red[t * nb + k];
-    float2 xm = red[t * nb + b - k];
-    if (k == 0) xk.y = xm.y = 0.f;
-    const float2 s = make_float2(xk.x + xm.x, xk.y - xm.y);
-    const float2 p = cmul(make_float2(xk.x - xm.x, xk.y + xm.y), tws[k]);
-    za[idx] = make_float2(s.x - p.y, s.y + p.x);
+    za[idx] = real_pre_twiddle(red + t * nb, tws, b, k);
   }
   __syncthreads();
   return reinterpret_cast<const float*>(fft_shared<true>(za, zb, b, NT, tws));

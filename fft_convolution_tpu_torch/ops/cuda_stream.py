@@ -20,8 +20,9 @@ first) followed by the T new spectra, output block ``t`` is
 table ``[N, B+1, 2]``, half the table bytes; the ring stays complex64)
 launch the kernel for CUDA tensors and take the plain PyTorch version
 :func:`stream_plain` only for CPU tensors; they never fall back.  Each
-counts its calls in ``.launches`` (four CUDA launches per call).  The state
-is updated in place.
+counts its calls in ``.launches``; a call is three CUDA launches (forward
+FFTs, the MAC, the finish), the MAC shaped by :func:`stream_plan`.  The
+state is updated in place.
 """
 
 from __future__ import annotations
@@ -35,7 +36,15 @@ from .. import _build
 from .cuda_engine import as_c64, check_block, require
 from .fft import twiddles
 
-TILE = 16  # audio blocks per MAC tile (kTile in csrc/b4_stream.cu)
+# The MAC's shape (csrc/b4_stream.cu) and the H100's limits that size it.
+TILE = 16              # audio blocks a MAC thread, and table rows a stage (kTile)
+STAGES = 4             # asynchronous-copy stages in flight (kStages)
+MAX_GROUPS = 4         # t-groups of TILE audio blocks a MAC thread block
+MAC_MAX_THREADS = 256  # kMacMaxThreads, with __launch_bounds__ at 128 registers a thread
+MAC_SM_WARPS = 16      # warps an SM holds at 128 registers: 4 sub-partitions x 4
+MAX_SMEM = 232448      # dynamic shared memory a thread block may opt into (227 KB)
+SM_SMEM = 233472       # shared memory of an SM (228 KB), 1 KB of it reserved a block
+SMS = 132
 
 
 @dataclasses.dataclass
@@ -95,15 +104,58 @@ def stream_plain(consts: StreamConsts, state: StreamState,
     return y
 
 
-def split_stream(n: int, t_len: int) -> tuple[int, int]:
-    """``(rows, splits)``: table rows per thread block of the MAC and the
-    number of splits, so that tiles x splits is about four blocks per SM of
-    an H100 (132), with at least 32 rows each to amortise a tile's window
-    fill."""
-    tiles = math.ceil(t_len / TILE)
-    splits = max(1, min(math.ceil(n / 32), math.ceil(4 * 132 / tiles)))
-    rows = math.ceil(n / splits)
-    return rows, math.ceil(n / rows)
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """The MAC's launch: a grid of ``(splits, t_tiles, bin_tiles)`` thread
+    blocks.  Block ``(s, i, z)`` sums table rows ``[s rows, (s+1) rows)``
+    (the last split cut at N) for audio blocks ``[i span, (i+1) span)`` and
+    bins ``[z kb, (z+1) kb)``, one thread a (t-group of TILE blocks, bin)."""
+
+    kb: int          # bins a thread block
+    bin_tiles: int
+    groups: int      # t-groups a thread block
+    t_tiles: int
+    ring_rows: int   # ext rows a block keeps in shared memory (a power of two)
+    rows: int        # table rows a split, a multiple of TILE
+    splits: int
+    threads: int     # threads a block: kb x groups rounded up to whole warps
+    smem: int        # bytes of dynamic shared memory a block asks for
+
+    @property
+    def span(self) -> int:
+        """Audio blocks a thread block covers."""
+        return TILE * self.groups
+
+
+def stream_plan(n: int, b: int, t_len: int, item: int) -> StreamPlan:
+    """The MAC's launch plan for an ``n``-row table of ``b + 1`` bins stored
+    ``item`` bytes a bin (8: complex64, 4: bf16 pairs) and ``t_len`` audio
+    blocks.
+
+    Up to MAX_GROUPS t-groups share a block, so each table row and ext row
+    is copied once for all of them; the ext ring holds the window of
+    ``span - 1`` rows and STAGES stages of TILE rows.  The bins are tiled so
+    that a block keeps within MAC_MAX_THREADS threads and MAX_SMEM bytes.
+    The splits then give about as many blocks as can be resident on the
+    card's SMS at once (MAC_SM_WARPS warps an SM), each of the fewest stages
+    of TILE table rows that does it."""
+    nb = b + 1
+    tgroups = math.ceil(t_len / TILE)
+    t_tiles = math.ceil(tgroups / MAX_GROUPS)
+    groups = math.ceil(tgroups / t_tiles)
+    span = TILE * groups
+    ring_rows = 1 << (span - 1 + STAGES * TILE - 1).bit_length()
+    per_bin = ring_rows * 8 + STAGES * TILE * item
+    bin_tiles = math.ceil(nb / min(MAC_MAX_THREADS // groups, MAX_SMEM // per_bin))
+    kb = math.ceil(nb / bin_tiles)
+    threads = 32 * math.ceil(kb * groups / 32)
+    smem = kb * per_bin
+    resident = max(1, min(SM_SMEM // (smem + 1024), MAC_SM_WARPS // (threads // 32)))
+    target = max(1, SMS * resident // (bin_tiles * t_tiles))
+    rows = TILE * math.ceil(math.ceil(n / TILE) / target)
+    return StreamPlan(kb=kb, bin_tiles=bin_tiles, groups=groups, t_tiles=t_tiles,
+                      ring_rows=ring_rows, rows=rows, splits=math.ceil(n / rows),
+                      threads=threads, smem=smem)
 
 
 def _launch(name: str, dtype: torch.dtype, consts: StreamConsts, state: StreamState,
@@ -124,16 +176,16 @@ def _launch(name: str, dtype: torch.dtype, consts: StreamConsts, state: StreamSt
     require(state.overlap, "overlap", (b,), torch.float32, dev)
     if not 0 <= state.w < n:
         raise ValueError(f"w {state.w} outside the ring of {n}")
-    rows, splits = split_stream(n, t_len)
-    spec = torch.empty((t_len, nb), dtype=torch.complex64, device=dev)
-    partial = torch.empty((splits, t_len, nb), dtype=torch.complex64, device=dev)
-    tails = torch.empty((t_len, b), device=dev)
+    plan = stream_plan(n, b, t_len, 8 if dtype == torch.complex64 else 4)
+    # the spectra [T, B+1], the partials [T, splits, B+1], the carried overlap
+    scratch = torch.empty(t_len * (1 + plan.splits) * nb + (b + 1) // 2,
+                          dtype=torch.complex64, device=dev)
     y = torch.empty((t_len, b), device=dev)
     err = getattr(_build.library(), name)(
-        blocks.data_ptr(), spec.data_ptr(), state.ring.data_ptr(),
-        consts.irrev.data_ptr(), consts.tw.data_ptr(), partial.data_ptr(),
-        tails.data_ptr(), y.data_ptr(), state.overlap.data_ptr(),
-        n, b, t_len, state.w, rows, splits, torch.cuda.current_stream(dev).cuda_stream)
+        blocks.data_ptr(), state.ring.data_ptr(), consts.irrev.data_ptr(),
+        consts.tw.data_ptr(), scratch.data_ptr(), y.data_ptr(), state.overlap.data_ptr(),
+        n, b, t_len, state.w, plan.kb, plan.groups, plan.ring_rows, plan.rows, plan.splits,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, name)
     state.w = (state.w + t_len) % n
     return y

@@ -1,4 +1,5 @@
-"""Device time per step of the port's per-block kernels, for one checkout.
+"""Device time per step of the port's per-block and stream kernels, for one
+checkout.
 
 Run from the repository root on a machine with one NVIDIA card::
 
@@ -6,15 +7,19 @@ Run from the repository root on a machine with one NVIDIA card::
 
 Imports ``fft_convolution_tpu_torch`` from ``DIR`` (default: this
 checkout), builds its kernels, makes the flagship serving wrappers of
-``chip_smoke.py`` (block 128, a random 10 s 48 kHz IR, seed 0) and prints
-one JSON line: the card's name and power limit, and for B1, B1p, B2 and B3
-the device microseconds and CUDA kernels per step from a ``torch.profiler``
-window over 256 warm steps (``chip_smoke.profile_steps``), the names of the
-CUDA kernels the window saw (one kernel a step for each of the four in this
-checkout; an older checkout may show two), and the median CUDA-event span
-of one ``process`` call (``chip_smoke.latency``).  To compare two checkouts
-on one card, run both in one machine session, in turns (parent, change,
-change, parent).
+``chip_smoke.py`` (block 128, a random 10 s 48 kHz IR, seed 0) and its
+long-IR streaming wrappers (a random 30 s IR, f32 and bf16 tables, calls
+of 64 blocks) and prints one JSON line: the card's name and power limit,
+and for B1, B1p, B2 and B3 the device microseconds and CUDA kernels per
+step from a ``torch.profiler`` window over 256 warm steps
+(``chip_smoke.profile_steps``), for B4 and B4p the same per call over 24
+warm calls, the device microseconds by CUDA kernel name (one kernel a step
+for each of B1-B3; three a call for B4 in this checkout, four in an older
+one), and the median CUDA-event span of one ``process`` call
+and the host's time to enqueue it (``chip_smoke.latency``; B4: 32 timed
+calls after 4).  To compare two
+checkouts on one card, run both in one machine session, in turns (parent,
+change, change, parent).
 """
 
 from __future__ import annotations
@@ -28,8 +33,13 @@ import sys
 import numpy as np
 import torch
 
-from chip_smoke import (BLOCK, IR_SECONDS, PROFILE_STEPS, PROFILE_WARMUP, SR,
-                        T_BLOCKS, latency, profile_steps)
+from chip_smoke import (BLOCK, IR_SECONDS, PROFILE_CALL_WARMUP, PROFILE_CALLS,
+                        PROFILE_STEPS, PROFILE_WARMUP, SR, STREAM_CALL, STREAM_SECONDS,
+                        STREAM_TIMED, STREAM_WARMUP, T_BLOCKS, latency, profile_steps)
+
+
+def _latency(r: dict) -> dict:
+    return {"event_ms": r["event_ms"], "enqueue_ms": r["enqueue_ms"]}
 
 
 def main() -> None:
@@ -44,6 +54,7 @@ def main() -> None:
     from fft_convolution_tpu_torch import _build
     from fft_convolution_tpu_torch.ops import cuda_crossfade, cuda_engine, cuda_two_stage
     from fft_convolution_tpu_torch.serving import (CudaCrossfadeConvolver, CudaFFTConvolver,
+                                                   CudaStreamingConvolver,
                                                    CudaTwoStageConvolver)
 
     _build.library()
@@ -73,7 +84,22 @@ def main() -> None:
         prof = profile_steps(step, PROFILE_STEPS, PROFILE_WARMUP)
         out[label] = {"device_us": prof["device_us"],
                       "cuda_launches_per_step": prof["cuda_launches_per_step"],
-                      "kernels": prof["names"], "event_ms": latency(conv, xs)["event_ms"]}
+                      "device_us_by_kernel": prof["by_name"],
+                      **_latency(latency(conv, xs))}
+    ir30 = (rng.standard_normal(STREAM_SECONDS * SR) * 0.01).astype(np.float32)
+    calls = STREAM_WARMUP + STREAM_TIMED
+    x_st = torch.from_numpy(rng.standard_normal((calls, STREAM_CALL * BLOCK))
+                            .astype(np.float32)).to(dev)
+    for label, storage in (("B4", "float32"), ("B4p", "bf16_packed")):
+        conv = CudaStreamingConvolver(ir30, BLOCK, len(ir30), device=dev, storage=storage)
+        prof = profile_steps(lambda i, c=conv: c._step(c.consts, c.state,
+                                                       x_st[i % calls].reshape(-1, BLOCK)),
+                             PROFILE_CALLS, PROFILE_CALL_WARMUP)
+        out[label] = {"device_us": prof["device_us"],
+                      "cuda_launches_per_step": prof["cuda_launches_per_step"],
+                      "device_us_by_kernel": prof["by_name"],
+                      **_latency(latency(conv, x_st, warmup=STREAM_WARMUP,
+                                         timed_n=STREAM_TIMED))}
     print(json.dumps(out), flush=True)
 
 

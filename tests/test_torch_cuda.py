@@ -24,7 +24,7 @@ from fft_convolution_tpu_torch.serving import (CudaCrossfadeConvolver, CudaFFTCo
 
 pytestmark = pytest.mark.cuda
 
-# The kernels' direct float32 DFTs against cuFFT's: a few 1e-6 apart per
+# The kernels' shared-memory float32 FFTs against cuFFT's: a few 1e-6 apart per
 # block at outputs of magnitude ~1 (chip_smoke.py's flagship run), growing
 # with the magnitude and the transform length.  1e-5 of the larger of 1 and
 # the output's magnitude is the JAX package's kernel-vs-engine tolerance.
@@ -284,11 +284,17 @@ def test_one_launch_kernels_interleave_with_their_own_counters(dev):
 
 @pytest.mark.parametrize("packed", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,n,calls", [(64, 24, (13, 1, 37, 8)), (128, 512, (64, 64, 700)),
-                                       (32, 1, (3, 5)), (2048, 4, (9, 2))])
+                                       (32, 1, (3, 5)), (2048, 4, (9, 2)),
+                                       (64, 37, (1, 13, 16, 37, 5, 70)),
+                                       (32, 300, (100, 17, 64, 33, 200)),
+                                       (2048, 40, (70, 3)), (128, 11264, (64, 64))])
 def test_b4_kernel_matches_plain(dev, packed, b, n, calls):
-    """B4 over call lengths that are not multiples of 8 or of the tile, that
-    exceed the ring (T > N: old rows overwritten within the call), and
-    through the ring's wrap; ring, w and overlap follow the plain version."""
+    """B4 over call lengths that are not multiples of 8 or of the tile (and
+    T = 1), that exceed the ring (T > N: old rows overwritten within the
+    call), and through the ring's wrap, which falls inside a stage of 16
+    rows as w moves; N not a multiple of a stage; B = 32 and 2048 (bin
+    tiles); the flagship stream shape (N = 11264, T = 64).  Ring, w and
+    overlap follow the plain version."""
     rng = np.random.default_rng(120 + n)
     consts = cuda_stream.build_consts(_spectra(rng, n, b, dev), packed)
     st, plain = cuda_stream.zero_state(n, b, dev), cuda_stream.zero_state(n, b, dev)

@@ -102,6 +102,33 @@ def test_b4_plain_matches_pallas_from_carried_state(packed):
                                    atol=F32_ATOL)
 
 
+@pytest.mark.parametrize("n,t_len,b", [(1, 1, 32), (1, 700, 2048), (24, 13, 64), (37, 1, 32),
+                                       (37, 70, 64), (512, 64, 128), (600, 17, 256),
+                                       (3750, 100, 128), (11264, 1, 128), (11264, 64, 128),
+                                       (11264, 64, 32), (11264, 64, 2048), (4, 9, 2048)])
+@pytest.mark.parametrize("item", [8, 4], ids=["f32", "bf16"])
+def test_stream_plan_covers_every_row_block_and_bin(n, t_len, b, item):
+    """Kernel B4's MAC launch plan: every table row in exactly one split,
+    every audio block and bin in a tile, whole warps within the kernel's
+    thread cap, an ext ring that holds the window and the stages in flight,
+    and shared memory within the 227 KB a block may have."""
+    plan = cuda_stream.stream_plan(n, b, t_len, item)
+    rows = [u for s in range(plan.splits)
+            for u in range(s * plan.rows, min((s + 1) * plan.rows, n))]
+    assert rows == list(range(n)) and plan.rows % cuda_stream.TILE == 0
+    for count, size, total in ((plan.t_tiles, plan.span, t_len),
+                               (plan.bin_tiles, plan.kb, b + 1)):
+        assert (count - 1) * size < total <= count * size
+    assert plan.threads % 32 == 0 and plan.kb * plan.groups <= plan.threads
+    assert plan.threads <= cuda_stream.MAC_MAX_THREADS
+    assert plan.groups <= cuda_stream.MAX_GROUPS
+    ring = plan.ring_rows
+    assert ring & (ring - 1) == 0
+    assert ring >= plan.span - 1 + cuda_stream.STAGES * cuda_stream.TILE
+    want_smem = plan.kb * (ring * 8 + cuda_stream.STAGES * cuda_stream.TILE * item)
+    assert plan.smem == want_smem <= 227 * 1024
+
+
 def test_b4_plain_long_calls_match_direct_convolution():
     """One call longer than the ring, ragged call lengths, and T = 1, against
     a float64 direct convolution: the extended-buffer formulation and the
