@@ -62,7 +62,25 @@ after; the flagship shape is block 128 and a 10 s 48 kHz IR.
     per step (CUDA kernel events only), the same by CUDA kernel name (B4's
     forward, MAC and finish apart), and CUDA kernels per step, gated to 1
     for the one-launch kernels B1, B1p, B2 and B3 and to 3 (three kernels,
-    once each) for B4 and B4p.
+    once each) for B4 and B4p;
+15. the batched streams (``torch.fft`` on the card; no hand-written kernel
+    lies on them, so every launch counter must stay 0) at the JAX package's
+    benchmark shapes, uncut: the flagship ``TwoStageFFTConvolver`` (block
+    128, 10 s IR, T = 3968), config 1 (``FFTConvolver``, 1 s IR, T = 1674),
+    config 2 (the uniform farm, 2 voices, block 256, 5 s IRs, T = 1111),
+    config 3 (``TwoStageFFTConvolver``, 30 s IR, T = 32 periods = 4096),
+    config 4 (the crossfade morph on two 1 s IRs mid-fade, T = 650) and a
+    short-IR ``ReverbFarm`` (128 voices of 512-tap IRs, T = 2046).  Each
+    shape: two aligned calls, gated to the conv core's expected call count
+    (``models.uniform._stream_conv.calls``), held to 1e-4 against a float64
+    ``torch.fft`` convolution on the card and against the same engine's
+    block loop; xRT (audio seconds over the median CUDA-event seconds of a
+    warm call, meta-spectra cached) of the batched call and of the block
+    loop (timed over at most 640 blocks and scaled); the CUDA kernels and
+    device microseconds of one call (``torch.profiler``).  Then, printed
+    only: the conv core at B4's shape (30 s IR, T = 64) beside B4's device
+    time from phase 14, and cuFFT along dim -2 against the same rows laid
+    out along dim -1.  A ``{"batched_streams": ...}`` line records it all.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches, error and times: the
@@ -78,6 +96,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import pathlib
@@ -108,6 +127,18 @@ FARM_UPDATED = [3, 64, 127]
 FARM_TIMED = {2: (2, 6), 8: (2, 4)}       # periods per call: (warm-up, timed) calls
 PROFILE_STEPS, PROFILE_WARMUP = 256, 64   # per-block kernels (phase 14)
 PROFILE_CALLS, PROFILE_CALL_WARMUP = 24, 4  # B4 calls
+# phase 15: the JAX benchmarks' stream shapes (bench.py:163-178,
+# benchmarks/configs.py:92-258) and the values they must resolve to
+FLAGSHIP_PERIODS, CONFIG3_PERIODS = 62, 32  # 62 x 64 = T_BLOCKS
+CONFIG3_SECONDS = 30
+FLAGSHIP_SHAPES = (8192, 64, 64, 57)        # tail block, period, head, big tail
+CONFIG3_SHAPES = (16384, 128, 128, 86)
+CONFIG_SEGS_T = {1: (375, 1674), 2: (938, 1111), 4: (375, 650)}  # segments, T
+SHORT_FARM = (128, 512, 2046)     # voices, IR taps (tail block 256: no big tail), T
+BATCHED_CALLS = 2                 # parity calls a shape, state carried
+BATCHED_WARMUP, BATCHED_TIMED, BATCHED_PROFILED = 2, 8, 3
+LOOP_BLOCKS, LOOP_RUNS = 640, 3   # the block loop's timing window (10 flagship periods)
+YARD_WARMUP, YARD_TIMED = 4, 20   # conv-core calls at B4's shape
 # one H100 SXM: the HBM3 rate and the FP32 peak outside the tensor cores
 # (NVIDIA's data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
@@ -252,6 +283,248 @@ def latency(conv, xs: torch.Tensor, warmup: int = WARMUP_BLOCKS,
     return {"event_ms": statistics.median(ev), "event_max_ms": max(ev),
             "enqueue_ms": statistics.median(enqueue), "sync_ms": statistics.median(sync),
             "blocks": len(ev)}
+
+
+def conv64(x: torch.Tensor, ir: torch.Tensor) -> torch.Tensor:
+    """The first ``x.shape[-1]`` samples of each row of ``x`` convolved with
+    ``ir`` (one row, or one a row of ``x``), in float64 with ``torch.fft``
+    on ``x``'s device."""
+    n = x.shape[-1]
+    nfft = 1 << (n + ir.shape[-1] - 2).bit_length()
+    spec = torch.fft.rfft(x.double(), nfft) * torch.fft.rfft(ir.double(), nfft)
+    return torch.fft.irfft(spec, nfft)[..., :n]
+
+
+def err64(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Max abs difference, taken in float64."""
+    return float((a.double() - b.double()).abs().max())
+
+
+def event_ms(thunks) -> list[float]:
+    """The CUDA-event span of each call in ``thunks``, issued back to back
+    with no synchronise between them."""
+    events = []
+    for fn in thunks:
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in events]
+
+
+def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
+                    b4_us: float | None = None) -> dict:
+    """Phase 15 (module docstring): every batched stream the port routes an
+    aligned call to, at the JAX benchmarks' shapes.  ``b4_us``: B4's device
+    microseconds a call, printed beside the conv core at B4's shape.
+    Returns a record a shape."""
+    from fft_convolution_tpu_torch import (CrossfadeConvolver, FFTConvolver, ReverbFarm,
+                                           TwoStageFFTConvolver)
+    from fft_convolution_tpu_torch.models import crossfade, uniform
+    from fft_convolution_tpu_torch.ops.fft import next_power_of_two
+    from fft_convolution_tpu_torch.parallel import farm
+
+    core = uniform._stream_conv
+    record = {}
+
+    def randn(rng, shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    def drive(name, x, batched, sequential, reference, per_call, audio_s, thunks,
+              pick=lambda y: y):
+        """``x [calls, T, ...]``: the calls through ``batched`` (``per_call``
+        conv-core calls each, no hand-written kernel) and through
+        ``sequential`` on a twin (no conv-core call), both held against
+        ``reference(x)``, a float64 convolution (``pick`` selects the part of
+        the output ``sequential`` computes).  Then the xRT of a warm call
+        (``thunks(k)``: k warm calls, in turn) and of the block loop, and one
+        call's profile."""
+        calls, t = x.shape[:2]
+        n0 = core.calls
+        y = counts.drive(f"{name} batched", lambda: torch.stack([batched(xc) for xc in x]),
+                         {})
+        took = core.calls - n0
+        print(f"{name}: {calls} aligned calls of T={t} blocks; the conv core ran {took} "
+              "times", flush=True)
+        if took != per_call * calls:
+            fail(f"{name}: the conv core ran {took} times, not {per_call} a call")
+        n0 = core.calls
+        y_seq = torch.stack([sequential(xc) for xc in x])
+        if core.calls != n0:
+            fail(f"{name}: the block loop reached the conv core")
+        if not torch.isfinite(y).all():
+            fail(f"{name}: non-finite output")
+        scale = float(y.abs().max())
+        print(f"{name}: output scale {scale!r}", flush=True)
+        e64 = err64(y, reference(x))
+        gate(f"{name}: batched vs float64 convolution", e64, PARITY_TOL)
+        e_loop = err64(pick(y), y_seq)
+        gate(f"{name}: batched vs the block loop", e_loop, PARITY_TOL)
+        del y, y_seq
+        th = thunks(BATCHED_WARMUP + BATCHED_TIMED + BATCHED_PROFILED)
+        ms = statistics.median(event_ms(th[:BATCHED_WARMUP + BATCHED_TIMED])[BATCHED_WARMUP:])
+        k = min(t, LOOP_BLOCKS)
+        loop_ms = statistics.median(event_ms([lambda: sequential(x[0, :k])] * LOOP_RUNS)) * t / k
+        prof = profile_steps(lambda i: th[BATCHED_WARMUP + BATCHED_TIMED + i](),
+                             BATCHED_PROFILED, 0)
+        rec = {"T": t, "audio_s": audio_s, "conv_core_calls": per_call, "scale": scale,
+               "err_f64": e64, "err_loop": e_loop, "ms": ms, "xrt": audio_s / (ms / 1e3),
+               "loop_ms": loop_ms, "xrt_loop": audio_s / (loop_ms / 1e3),
+               "device_us": prof["device_us"],
+               "cuda_kernels": prof["cuda_launches_per_step"], "device_us_by_kernel":
+               dict(sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:8])}
+        record[name] = rec
+        print(f"{name}: batched {ms!r} ms a call (CUDA-event median) -> xRT {rec['xrt']!r}; "
+              f"block loop {loop_ms!r} ms a call ({k} blocks timed) -> xRT "
+              f"{rec['xrt_loop']!r}; one call {prof['device_us']!r} device us in "
+              f"{prof['cuda_launches_per_step']!r} CUDA kernels", flush=True)
+
+    def two_stage_shape(name, seed, seconds, scale, periods, want):
+        rng = np.random.default_rng(seed)
+        ir = (rng.standard_normal(seconds * SR) * scale).astype(np.float32)
+        eng = TwoStageFFTConvolver(ir, BLOCK, len(ir), device=dev)
+        c = eng.cfg
+        got = (c.tail_block, c.period, c.head.seg_count, c.tail.seg_count)
+        if got != want:
+            fail(f"{name}: (tail block, period, head, big tail) {got} != {want}")
+        t = periods * c.period
+        x = randn(rng, (BATCHED_CALLS, t, BLOCK))
+        twin, ir_d = eng.clone(), torch.from_numpy(ir).to(dev)
+        drive(name, x, lambda xc: eng.process(xc.reshape(-1)).view(xc.shape),
+              lambda xc: run_blocks(twin, xc),
+              lambda xa: conv64(xa.reshape(-1), ir_d).view(xa.shape),
+              3, t * BLOCK / SR, lambda k: [lambda: eng.process(x[0].reshape(-1))] * k)
+
+    def uniform_t(name, n, key):
+        t = next_power_of_two(n + {1: 1023, 2: 511, 4: 255}[key]) - n + 1
+        if (n, t) != CONFIG_SEGS_T[key]:
+            fail(f"{name}: (segments, T) {(n, t)} != {CONFIG_SEGS_T[key]}")
+        return t
+
+    # flagship: bench.py:163-178 (its IR and first call are phase 1's)
+    two_stage_shape("flagship two-stage", 0, IR_SECONDS, 0.01, FLAGSHIP_PERIODS,
+                    FLAGSHIP_SHAPES)
+
+    # config 1: benchmarks/configs.py:92-118
+    rng = np.random.default_rng(0)
+    ir1 = (rng.standard_normal(SR) * 0.02).astype(np.float32)
+    eng1 = FFTConvolver(ir1, BLOCK, SR, device=dev)
+    t = uniform_t("config 1", eng1.cfg.seg_count, 1)
+    x = randn(rng, (BATCHED_CALLS, t, BLOCK))
+    twin1, ir1_d = eng1.clone(), torch.from_numpy(ir1).to(dev)
+    drive("config 1 uniform", x, lambda xc: eng1.process(xc.reshape(-1)).view(xc.shape),
+          lambda xc: run_blocks(twin1, xc),
+          lambda xa: conv64(xa.reshape(-1), ir1_d).view(xa.shape),
+          1, t * BLOCK / SR, lambda k: [lambda: eng1.process(x[0].reshape(-1))] * k)
+
+    # config 2: benchmarks/configs.py:121-146, the stereo farm at block 256
+    rng = np.random.default_rng(1)
+    irs2 = torch.from_numpy((rng.standard_normal((2, 5 * SR)) * 0.01).astype(np.float32)).to(dev)
+    cfg2, st2 = farm.farm_init(irs2, 256, 5 * SR)
+    t = uniform_t("config 2", cfg2.seg_count, 2)
+    x = randn(rng, (BATCHED_CALLS, t, 2, 256))
+    st2_seq, kh2 = st2.clone(), farm.farm_khat(cfg2, st2, t)
+
+    def voices64(xa, irs):
+        """float64 reference of ``xa [calls, T, V, B]``, voice v with ``irs[v]``."""
+        v = xa.shape[2]
+        y = conv64(xa.permute(2, 0, 1, 3).reshape(v, -1), irs)
+        return y.view(v, *xa.shape[:2], xa.shape[3]).permute(1, 2, 0, 3)
+
+    drive("config 2 uniform farm", x, lambda xc: farm.farm_stream(cfg2, st2, xc, kern_hat=kh2),
+          lambda xc: torch.stack([farm.farm_step(cfg2, st2_seq, xt) for xt in xc]),
+          lambda xa: voices64(xa, irs2), 1, t * 256 / SR,
+          lambda k: [lambda: farm.farm_stream(cfg2, st2, x[0], kern_hat=kh2)] * k)
+
+    # config 3: benchmarks/configs.py:149-198
+    two_stage_shape("config 3 two-stage 30 s", 2, CONFIG3_SECONDS, 0.005, CONFIG3_PERIODS,
+                    CONFIG3_SHAPES)
+
+    # config 4: benchmarks/configs.py:201-258, mid-fade throughout
+    rng = np.random.default_rng(3)
+    ir_a = (rng.standard_normal(SR) * 0.02).astype(np.float32)
+    ir_b = (rng.standard_normal(SR) * 0.02).astype(np.float32)
+    cc = CrossfadeConvolver(FFTConvolver(ir_a, BLOCK, SR, device=dev), SR, BLOCK, 10 * SR)
+    cc.update(ir_b)
+    t = uniform_t("config 4", cc.convolver_a.cfg.seg_count, 4)
+    x = randn(rng, (BATCHED_CALLS, t, BLOCK))
+    if not cc.is_crossfading() or (BATCHED_CALLS + 1) * t * BLOCK >= 10 * SR:
+        fail("config 4: the calls would not all be mid-fade")
+    twin4, cf0 = cc.clone(), cc.cf_state
+    ira_d, irb_d = torch.from_numpy(ir_a).to(dev), torch.from_numpy(ir_b).to(dev)
+
+    def xfade_loop(xc):
+        """Both engines' block loops, mixed once over the call as the batched
+        path mixes: a mix a block steps the float32 ramp 650 times a call,
+        and that drift (~1e-4 at this scale over two calls) is the mixer's
+        granularity, not the stream's."""
+        a = run_blocks(twin4.convolver_a, xc).reshape(-1)
+        b = run_blocks(twin4.convolver_b, xc).reshape(-1)
+        twin4.cf_state, y = crossfade.mix_block(twin4.cf_cfg, twin4.cf_state, a, b)
+        return y.view(xc.shape)
+
+    drive("config 4 crossfade", x, lambda xc: cc.process(xc.reshape(-1)).view(xc.shape),
+          xfade_loop,
+          lambda xa: crossfade.mix_samples(cc.cf_cfg, cf0, conv64(xa.reshape(-1), ira_d),
+                                           conv64(xa.reshape(-1), irb_d)).view(xa.shape),
+          2, t * BLOCK / SR,
+          # each timed call on its own clone of the engine mid-fade
+          lambda k: [functools.partial(c.process, x[0].reshape(-1))
+                     for c in [cc.clone() for _ in range(k)]])
+
+    # a short-IR ReverbFarm: no big tail, head and tail0 on the conv core
+    v, taps, t = SHORT_FARM
+    rng = np.random.default_rng(6)
+    irs6 = torch.from_numpy((rng.standard_normal((v, taps)) * 0.05).astype(np.float32)).to(dev)
+    fm = ReverbFarm(irs6, BLOCK, taps, device=dev)
+    if fm.cfg.tail is not None or fm.cfg.tail0 is None or t % fm.period:
+        fail(f"short-IR farm: tail block {fm.cfg.tail_block} gives a big tail, no tail0 "
+             f"or a period that does not divide T={t}")
+    x = randn(rng, (BATCHED_CALLS, t, v, BLOCK))
+    checked = [0, v - 1]
+    twins = [TwoStageFFTConvolver(irs6[i], BLOCK, taps, device=dev) for i in checked]
+    drive(f"short-IR ReverbFarm ({v} voices x {taps} taps)", x, fm.process,
+          lambda xc: torch.stack([run_blocks(e, xc[:, i]) for e, i in zip(twins, checked)],
+                                 dim=1),
+          lambda xa: voices64(xa, irs6), 2, t * BLOCK / SR,
+          lambda k: [lambda: fm.process(x[0])] * k, pick=lambda y: y[:, :, checked])
+
+    # B4 yardstick (printed, not gated): the conv core at B4's shape
+    yard = FFTConvolver(ir30, BLOCK, len(ir30), device=dev)
+    t = x30.shape[1] // BLOCK
+    y0 = yard.process(x30[0])
+    yard_err = err64(y0, conv64(x30[0], torch.from_numpy(ir30).to(dev)))
+    n0 = core.calls
+    ms = statistics.median(event_ms([functools.partial(yard.process, x30[1 + i])
+                                     for i in range(YARD_WARMUP + YARD_TIMED)])[YARD_WARMUP:])
+    prof = profile_steps(lambda i: yard.process(x30[i % x30.shape[0]]), BATCHED_PROFILED, 0)
+    if core.calls - n0 != YARD_WARMUP + YARD_TIMED + BATCHED_PROFILED:
+        fail("B4 yardstick: a call missed the conv core")
+    m = uniform.meta_size(yard.cfg.seg_count, t)
+    record["B4 yardstick"] = {"N": yard.cfg.seg_count, "T": t, "m": m, "ms": ms,
+                              "device_us": prof["device_us"],
+                              "cuda_kernels": prof["cuda_launches_per_step"],
+                              "err_f64": yard_err, "b4_device_us": b4_us,
+                              "device_us_by_kernel": prof["by_name"]}
+    print(f"B4 yardstick: the conv core at N={yard.cfg.seg_count}, T={t} (m={m}): "
+          f"{prof['device_us']!r} device us in {prof['cuda_launches_per_step']!r} CUDA "
+          f"kernels, {ms!r} ms a call (CUDA-event median); B4 {b4_us!r} device us "
+          f"(phase 14, None when not run); first call vs float64 {yard_err!r}", flush=True)
+
+    # cuFFT along the block axis: strided (dim -2) against contiguous rows
+    for rows in (4096, 16384):
+        ext = torch.randn((rows, BLOCK + 1), dtype=torch.complex64, device=dev)
+        ext_t = ext.mT.contiguous()
+        us = [profile_steps(fn, 20, 4)["device_us"]
+              for fn in (lambda i: torch.fft.fft(ext, dim=-2),
+                         lambda i: torch.fft.fft(ext_t, dim=-1))]
+        record[f"cufft {rows}x{BLOCK + 1}"] = {"dim_-2_us": us[0], "dim_-1_us": us[1]}
+        print(f"cuFFT of {rows} rows x {BLOCK + 1} bins: along dim -2 {us[0]!r} device us, "
+              f"the same laid out along dim -1 {us[1]!r}", flush=True)
+    return record
 
 
 def main() -> None:
@@ -671,6 +944,11 @@ def main() -> None:
             fail(f"{label}: {prof['cuda_launches_per_step']!r} CUDA kernels per step "
                  f"({prof['names']}), not {want} launches of {want} kernels")
     phase_done("14 device profile")
+
+    # ---- 15. batched streams at the JAX benchmarks' shapes --------------------
+    batched = batched_streams(dev, counts, ir30, x_st, profiled["B4"]["device_us"])
+    print(json.dumps({"batched_streams": batched}), flush=True)
+    phase_done("15 batched streams")
 
     def best(label, kind, key="event_ms"):
         return min(r[key] for r in timing[label][kind])

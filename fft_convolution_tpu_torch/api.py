@@ -49,6 +49,9 @@ class FFTConvolver:
         # host shadow of input_fill that drives the chunker, kept as the JAX
         # wrapper keeps it (it advances even while the engine is inactive)
         self._fill = 0
+        # stream kernel meta-spectra (uniform.stream_khat) per meta size m:
+        # input-independent between IR updates
+        self._khat_cache: dict[int, torch.Tensor] = {}
 
     def update(self, response) -> None:
         """IR swap (``src/fft_convolver.rs:174-213``)."""
@@ -60,6 +63,7 @@ class FFTConvolver:
             return
         padded = copy_and_pad(response, self.cfg.seg_count * self.cfg.block_size)
         uniform.update(self.cfg, self.state, padded, new_len)
+        self._khat_cache.clear()  # built from the old table and active count
 
     def reset(self) -> None:
         uniform.reset(self.state)
@@ -67,19 +71,31 @@ class FFTConvolver:
 
     def process(self, input) -> torch.Tensor:
         """Any-length processing (``src/fft_convolver.rs:215-295``).  Block-
-        aligned calls run the block loop; other sizes run the sub-block
-        chunker.  (The JAX package's batched stream for aligned calls is
-        still to port; its outputs are the same.)"""
+        aligned calls stream all their blocks at once
+        (:func:`.models.uniform.process_stream`, with the cached kernel
+        meta-spectra); other sizes run the sub-block chunker."""
         x = as_signal(input, self.device)
         b = self.cfg.block_size
         n = x.shape[0]
         if n == 0:
             return x
         if self._fill == 0 and n % b == 0:
-            ys = [uniform.process_block(self.cfg, self.state, blk)
-                  for blk in x.split(b)]
-            return torch.cat(ys)
+            return uniform.process_stream(self.cfg, self.state, x.view(-1, b),
+                                          kern_hat=self._get_khat(n // b)).reshape(-1)
         return self._process_chunked(x)
+
+    def _get_khat(self, t: int) -> torch.Tensor | None:
+        """The cached :func:`.models.uniform.stream_khat` for a ``t``-block
+        stream, or None where the conv core's size gate (``block_size <=
+        2048 and T >= 8``) sends it to the block loop.  Keyed by the meta
+        size, so a khat of another size is never served; ``update`` and
+        ``restore`` clear the cache, ``clone`` copies it."""
+        if not (self.cfg.block_size <= 2048 and t >= 8):
+            return None
+        m = uniform.meta_size(self.cfg.seg_count, t)
+        if m not in self._khat_cache:
+            self._khat_cache[m] = uniform.stream_khat(self.cfg, self.state, t)
+        return self._khat_cache[m]
 
     def _process_chunked(self, x: torch.Tensor) -> torch.Tensor:
         b = self.cfg.block_size
@@ -105,6 +121,7 @@ class FFTConvolver:
     def restore(self, snap) -> None:
         state, self._fill = snap
         self.state = state.clone()
+        self._khat_cache.clear()  # the snapshot may hold another table
 
     def clone(self) -> "FFTConvolver":
         other = object.__new__(FFTConvolver)
@@ -112,4 +129,7 @@ class FFTConvolver:
         other.cfg = self.cfg
         other.state = self.state.clone()
         other._fill = self._fill
+        # its own dict (entries are never written in place): an update of
+        # either engine clears only its own
+        other._khat_cache = dict(self._khat_cache)
         return other

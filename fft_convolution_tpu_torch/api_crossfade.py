@@ -6,10 +6,12 @@ and of the reference ``CrossfadeConvolver<T>``
 inactive engine and fades into it, with a single pending-response slot for
 an update that arrives mid-fade (``:51-64``).
 
-The JAX package's fused single-dispatch stream for block-aligned uniform
-engines is not carried: it needs the batched stream (ROADMAP A7).  Every
-call runs the two engines one after the other, which is the reference's
-own schedule.  For one kernel launch per block use
+A block-aligned call on two uniform engines of one configuration runs both
+engines' batched streams (:func:`.models.uniform.process_stream`, each with
+its cached kernel meta-spectra) and one mix over the whole call, as the JAX
+package's fused stream does (``api_crossfade.py:29-52,118-153`` there).
+Other calls run the two engines' own ``process`` one after the other, the
+reference's schedule.  For one kernel launch per block use
 :class:`~fft_convolution_tpu_torch.serving.CudaCrossfadeConvolver`.
 """
 
@@ -17,8 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from .api import as_signal
-from .models import crossfade
+from .api import FFTConvolver, as_signal
+from .models import crossfade, uniform
 
 
 class CrossfadeConvolver:
@@ -81,14 +83,32 @@ class CrossfadeConvolver:
         self.stored_response[:response.shape[0]] = response
         self.response_pending = True
 
+    def _can_fuse(self, n: int) -> bool:
+        """Whether an ``n``-sample call takes the fused stream: two uniform
+        engines of one configuration, both at a block boundary, and a
+        non-empty block-aligned call (JAX ``api_crossfade.py:118-129``)."""
+        a, b = self.convolver_a, self.convolver_b
+        return (type(a) is FFTConvolver and type(b) is FFTConvolver and a.cfg == b.cfg
+                and a._fill == 0 and b._fill == 0 and n > 0
+                and n % a.cfg.block_size == 0)
+
     def process(self, input) -> torch.Tensor:
         """(``src/crossfade_convolver.rs:66-78``): apply a pending swap at
         block top, run BOTH engines, mix per sample."""
         if not self.is_crossfading() and self.response_pending:
             self._swap(self.stored_response)
             self.response_pending = False
-        buffer_a = self.convolver_a.process(input)
-        buffer_b = self.convolver_b.process(input)
+        a, b = self.convolver_a, self.convolver_b
+        x = as_signal(input, a.device)
+        if self._can_fuse(x.shape[0]):
+            blocks = x.view(-1, a.cfg.block_size)
+            t = blocks.shape[0]
+            buffer_a = uniform.process_stream(a.cfg, a.state, blocks, a._get_khat(t))
+            buffer_b = uniform.process_stream(b.cfg, b.state, blocks, b._get_khat(t))
+            buffer_a, buffer_b = buffer_a.reshape(-1), buffer_b.reshape(-1)
+        else:
+            buffer_a = a.process(x)
+            buffer_b = b.process(x)
         self.cf_state, y = crossfade.mix_block(self.cf_cfg, self.cf_state,
                                                buffer_a, buffer_b)
         return y

@@ -4,7 +4,10 @@
 V two-stage voices with distinct long IRs are batched on one device: the
 head and tail0 stages as one combined causal convolution along the block
 axis (its kernel meta-spectra cached per call length), the big tail on
-kernel B5 (:mod:`.ops.cuda_farm_mac`).  The contract mirrors the per-voice
+kernel B5 (:mod:`.ops.cuda_farm_mac`).  A short-IR farm (IRs of at most two
+tail blocks: no big tail) streams through the two-stage engine's aligned
+path over the voice axis, its stages' meta-spectra cached per call length.
+The contract mirrors the per-voice
 ``TwoStageFFTConvolver`` where it can: ``process`` streams audio, ``update``
 is the batched RT-safe IR swap (``update_extension`` semantics, at full
 stage capacity), ``reset`` clears the input state and keeps the IR tables,
@@ -17,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models import two_stage
 from .ops import cuda_farm_mac
 from .ops.fft import next_power_of_two
 from .parallel import farm2
@@ -39,8 +43,7 @@ class ReverbFarm:
         voice.
     block_size : head block size in samples (a power of two).
     max_response_length : IR capacity per voice; ``update`` accepts any
-        length up to it.  It must exceed two tail blocks: the short-IR farm
-        is not ported yet (ROADMAP A7) and raises ``NotImplementedError``.
+        length up to it.  At most two tail blocks makes a short-IR farm.
     tail_dtype : ``torch.float32`` (default) or ``torch.bfloat16``: bf16
         pairs for the big tail's ring and table, half the bytes kernel B5
         reads, with ~1e-3 relative error on the tail contribution.
@@ -85,13 +88,16 @@ class ReverbFarm:
         self.voices = irs.shape[0]
         self.block_size = self.cfg.head_block
         self.max_response_length = max_response_length
-        self.max_blocks_per_call = farm2.max_blocks_per_call(self.cfg.period,
-                                                              self.cfg.tail.seg_count)
+        # the phased big tail bounds a call; the short-IR farm takes any length
+        self.max_blocks_per_call = (
+            None if self.cfg.tail is None
+            else farm2.max_blocks_per_call(self.cfg.period, self.cfg.tail.seg_count))
         self._step = (cuda_farm_mac.phased_step_packed if tail_dtype == torch.bfloat16
                       else cuda_farm_mac.phased_step)
         # head-kernel meta-spectra per meta length m, with the call length
-        # that built them: input-independent between IR updates
-        self._khat_cache: dict[int, tuple[int, torch.Tensor]] = {}
+        # that built them (the short-IR farm: two_stage.stream_khats per call
+        # length T): input-independent between IR updates
+        self._khat_cache: dict[int, tuple[int, torch.Tensor] | dict] = {}
 
     @property
     def period(self) -> int:
@@ -105,8 +111,8 @@ class ReverbFarm:
     def process(self, blocks) -> torch.Tensor:
         """Stream ``[T, V, block_size] -> [T, V, block_size]``, a tensor on
         the farm's device.  ``T`` must be a positive multiple of ``period``
-        and at most ``max_blocks_per_call`` (split longer streams into
-        consecutive calls)."""
+        and at most ``max_blocks_per_call`` where that is not None (split
+        longer streams into consecutive calls)."""
         x = torch.as_tensor(blocks, dtype=torch.float32, device=self.device)
         t = x.shape[0]
         if x.ndim != 3 or tuple(x.shape[1:]) != (self.voices, self.block_size):
@@ -116,12 +122,16 @@ class ReverbFarm:
             raise ValueError(
                 f"T={t} must be a positive multiple of the tail period "
                 f"({self.period} blocks) — the aligned farm consumes whole tail periods")
-        if t > self.max_blocks_per_call:
+        if self.max_blocks_per_call is not None and t > self.max_blocks_per_call:
             raise ValueError(
                 f"T={t} exceeds the farm's per-call ceiling of "
                 f"{self.max_blocks_per_call} blocks "
                 f"({self.max_blocks_per_call // self.period} tail periods) — split the "
                 "stream into consecutive process() calls")
+        if self.cfg.tail is None:
+            if t not in self._khat_cache:
+                self._khat_cache[t] = two_stage.stream_khats(self.cfg, self.state, t)
+            return farm2.farm2_stream(self.cfg, self.state, x, head_khat=self._khat_cache[t])
         m = next_power_of_two(2 * self.cfg.head.seg_count - 1 + t)
         if m not in self._khat_cache:
             self._khat_cache[m] = (t, farm2.farm2_head_khat(self.cfg, self.state, t))
@@ -170,6 +180,9 @@ class ReverbFarm:
             self.update(full)
             return
         farm2.farm2_update_voices(self.cfg, self.state, idx, new_irs)
+        if self.cfg.tail is None:
+            self._khat_cache.clear()  # rebuilt whole at the next call
+            return
         vidx = torch.from_numpy(idx).to(self.device)
         patched = {}
         for m, (t, kh) in self._khat_cache.items():
@@ -190,6 +203,10 @@ class ReverbFarm:
                         stage.pre_multiplied):
                 buf.zero_()
             stage.current = stage.input_fill = 0
+        if self.cfg.tail is None:
+            for k in two_stage._BUFFERS:
+                getattr(st, k).zero_()
+            return
         for buf in (st.tail.ring, st.tail.overlap, st.tail.pre, st.hist, st.tail_output,
                     st.tail_precalc):
             buf.zero_()

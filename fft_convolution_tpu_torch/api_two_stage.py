@@ -17,9 +17,11 @@ class TwoStageFFTConvolver:
 
     The reference restricts ``process`` to ``input.len() <= head_block_size``
     (``src/fft_convolver.rs:414``); this wrapper, like the JAX one, also
-    takes longer inputs of any length (PARITY.md divergence 1).  Block-
-    aligned calls run the head-block loop; the JAX package's period-aligned
-    batched stream is still to port, and its outputs are the same.
+    takes longer inputs of any length (PARITY.md divergence 1).  A block-
+    aligned call is split at period boundaries: its whole periods stream at
+    once (:func:`.models.two_stage.process_stream_aligned`, with the stages'
+    kernel meta-spectra cached per call length), the ragged blocks before
+    and after them run the head-block loop.
     """
 
     def __init__(self, response, block_size: int, max_response_length: int,
@@ -33,6 +35,9 @@ class TwoStageFFTConvolver:
                                               block_size, max_response_length,
                                               self.device)
         self._fill = 0  # host shadow of tail_fill % head_block
+        # two_stage.stream_khats per aligned call length T: input-independent
+        # between IR updates
+        self._khat_cache: dict[int, dict] = {}
 
     def _capacity(self) -> int:
         """The init ``max_response_length``, rebuilt from the stage IR caps
@@ -60,21 +65,51 @@ class TwoStageFFTConvolver:
             raise ValueError("New impulse response is longer than initialized length")
         two_stage.update(self.cfg, self.state, copy_and_pad(response, cap),
                          response.shape[0])
+        self._khat_cache.clear()  # built from the old stage tables
 
     def reset(self) -> None:
         two_stage.reset(self.cfg, self.state)
         self._fill = 0
 
     def process(self, input) -> torch.Tensor:
+        """Any-length processing.  Block-aligned calls split at period
+        boundaries (JAX ``api_two_stage.py:207-228``): the blocks up to the
+        next period boundary, the whole periods after it (one aligned
+        stream), then the remaining blocks.  The period position is the
+        state's own ``tail_fill``, a host int."""
         x = as_signal(input, self.device)
-        b = self.cfg.head_block
-        if x.shape[0] == 0:
+        b, tb = self.cfg.head_block, self.cfg.tail_block
+        n = x.shape[0]
+        if n == 0:
             return x
-        if self._fill == 0 and x.shape[0] % b == 0:
-            ys = [two_stage.process_block(self.cfg, self.state, blk)
-                  for blk in x.split(b)]
-            return torch.cat(ys)
-        return self._process_chunked(x)
+        if self._fill != 0 or n % b != 0:
+            return self._process_chunked(x)
+        fill = self.state.tail_fill
+        pre = 0 if fill == 0 else min(n, tb - fill)
+        mid = pre + (n - pre) // tb * tb
+        ys = []
+        if pre:
+            ys.append(self._process_blocks(x[:pre]))
+        if mid > pre:
+            ys.append(self._process_aligned(x[pre:mid]))
+        if n > mid:
+            ys.append(self._process_blocks(x[mid:]))
+        return ys[0] if len(ys) == 1 else torch.cat(ys)
+
+    def _process_blocks(self, x: torch.Tensor) -> torch.Tensor:
+        """The head-block loop (the reference schedule, block by block)."""
+        return torch.cat([two_stage.process_block(self.cfg, self.state, blk)
+                          for blk in x.split(self.cfg.head_block)])
+
+    def _process_aligned(self, x: torch.Tensor) -> torch.Tensor:
+        """Whole periods at a period boundary, through the aligned stream and
+        the cached :func:`.models.two_stage.stream_khats` of their length."""
+        t = x.shape[0] // self.cfg.head_block
+        khats = self._khat_cache.get(t)
+        if khats is None:
+            khats = self._khat_cache[t] = two_stage.stream_khats(self.cfg, self.state, t)
+        return two_stage.process_stream_aligned(self.cfg, self.state, x.view(t, -1),
+                                                khats).reshape(-1)
 
     def _process_chunked(self, x: torch.Tensor) -> torch.Tensor:
         b = self.cfg.head_block
@@ -97,6 +132,7 @@ class TwoStageFFTConvolver:
     def restore(self, snap) -> None:
         state, self._fill = snap
         self.state = state.clone()
+        self._khat_cache.clear()  # the snapshot may hold other stage tables
 
     def clone(self) -> "TwoStageFFTConvolver":
         other = object.__new__(TwoStageFFTConvolver)
@@ -104,4 +140,5 @@ class TwoStageFFTConvolver:
         other.cfg = self.cfg
         other.state = self.state.clone()
         other._fill = self._fill
+        other._khat_cache = dict(self._khat_cache)  # entries are never written in place
         return other

@@ -12,6 +12,11 @@ buffers.  IR split (``:352-384``), with ``T = tail_block``:
 
 Absent stages are empty (zero-output) engines.  As in :mod:`.uniform`, the
 functions update the state in place; :meth:`TwoStageState.clone` copies it.
+
+Period-aligned streams (:func:`process_stream_aligned`) run the three
+stages as independent batched uniform streams whose outputs sum with fixed
+period delays.  The JAX package's fused head+tail0 front end and its CHRONO
+big-tail history are not ported: they change no output.
 """
 
 from __future__ import annotations
@@ -212,3 +217,88 @@ def process_partial(cfg: TwoStageConfig, state: TwoStageState, chunk: torch.Tens
         fill = 0
     state.tail_fill = state.precalc_pos = fill
     return y_full
+
+
+# Big-tail routing (``TAIL_CONV_RATIO``, ``fft_convolution_tpu/models/
+# two_stage.py:617-637``): the sequential ring reads the whole ring per
+# block (bytes ~ q * N), the conv core's block-axis transforms cost ~m rows
+# each whatever q is; the JAX package measured the conv core ahead from
+# q * N >= 5 m.  The port keeps its rule until an H100 profile asks for
+# another.
+TAIL_CONV_RATIO = 5
+
+
+def tail_uses_conv_core(cfg: TwoStageConfig, t: int) -> bool:
+    """Whether a ``t``-head-block aligned call runs its big tail through the
+    conv core (``tail_uses_conv_core``,
+    ``fft_convolution_tpu/models/two_stage.py:629``)."""
+    if cfg.tail is None:
+        return False
+    q = t // cfg.period
+    n = cfg.tail.seg_count
+    return q * n >= TAIL_CONV_RATIO * uniform.meta_size(n, q)
+
+
+def stream_khats(cfg: TwoStageConfig, state: TwoStageState, t: int) -> dict:
+    """The stages' kernel meta-spectra for ``t``-block aligned calls
+    (``stream_khats``, ``fft_convolution_tpu/models/two_stage.py:640``,
+    its separate-streams entries): ``head`` and ``t0``
+    (:func:`.uniform.stream_khat`; ``t0`` None without a tail0 stage), and
+    ``tail`` when :func:`tail_uses_conv_core` sends the big tail to the
+    conv core.  Input-independent between IR updates; pass to
+    :func:`process_stream_aligned` as ``khats=``."""
+    out = {"head": uniform.stream_khat(cfg.head, state.head, t),
+           "t0": (uniform.stream_khat(cfg.tail0, state.tail0, t)
+                  if cfg.tail0 is not None else None)}
+    if tail_uses_conv_core(cfg, t):
+        out["tail"] = uniform.stream_khat(cfg.tail, state.tail, t // cfg.period)
+    return out
+
+
+def process_stream_aligned(cfg: TwoStageConfig, state: TwoStageState,
+                           blocks: torch.Tensor, khats: dict | None = None) -> torch.Tensor:
+    """Period-aligned batched streaming (``process_stream_aligned``,
+    ``fft_convolution_tpu/models/two_stage.py:726``, its separate-streams
+    form): ``blocks [..., T, B] -> y [..., T, B]`` with ``T`` a multiple of
+    the period and ``tail_fill == 0`` (the caller checks); leading axes are
+    voices of one lockstep state.
+
+    The double-buffered tails of the sequential schedule
+    (``src/fft_convolver.rs:439-456,473-486``) make the stages independent
+    streams:
+
+        y = head(x) + delay_1_period(tail0(x)) + delay_2_periods(tail(x))
+
+    tail0 at the head block over the same blocks, the big tail at the tail
+    block over period-sized superblocks, each through
+    :func:`.uniform.process_stream` with its ``khats`` entry.  The exit
+    state holds the sequential schedule's buffers exactly, so the aligned
+    and block paths interleave freely."""
+    b, tb, p = cfg.head_block, cfg.tail_block, cfg.period
+    t = blocks.shape[-2]
+    q = t // p
+    if q * p != t or q == 0:
+        raise ValueError(f"T={t} must be a positive multiple of the period {p}")
+    lead = blocks.shape[:-2]
+    kh = khats or {}
+    y = uniform.process_stream(cfg.head, state.head, blocks, kh.get("head"))
+    yq = y.view(*lead, q, tb)
+    if cfg.tail0 is not None:
+        out0 = uniform.process_stream(cfg.tail0, state.tail0, blocks,
+                                      kh.get("t0")).view(*lead, q, tb)
+        yq[..., 0, :] += state.tail_precalc0
+        yq[..., 1:, :] += out0[..., :-1, :]
+        output0 = out0[..., -2, :].clone() if q >= 2 else state.tail_precalc0
+        state.tail_precalc0, state.tail_output0 = out0[..., -1, :].clone(), output0
+    if cfg.tail is not None:
+        out_t = uniform.process_stream(cfg.tail, state.tail,
+                                       blocks.reshape(*lead, q, tb), kh.get("tail"))
+        yq[..., 0, :] += state.tail_precalc
+        if q >= 2:
+            yq[..., 1, :] += state.tail_output
+        yq[..., 2:, :] += out_t[..., :-2, :]
+        precalc = out_t[..., -2, :].clone() if q >= 2 else state.tail_output
+        state.tail_precalc, state.tail_output = precalc, out_t[..., -1, :].clone()
+    state.tail_input = blocks[..., t - p:, :].reshape(*lead, tb).clone()
+    state.tail_fill = state.precalc_pos = 0
+    return y

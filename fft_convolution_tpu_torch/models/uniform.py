@@ -25,6 +25,19 @@ Semantics follow the reference exactly:
   so output has zero added latency (``:222-294``);
 * ``active_segs == 0`` outputs zeros and leaves the state untouched
   (``:216-219``).
+
+:func:`process_block` and :func:`process_stream` take leading batch axes
+(``segments`` ``[..., N, B+1]``, blocks ``[..., B]``), so a farm's voices
+share them (:mod:`..parallel.farm`).
+
+Block-aligned streams (:func:`process_stream`) run the frequency-delay
+line's MAC over all T blocks at once: it is a causal convolution along the
+block axis (``conv[t] = sum_i ir[i] * X[t - i]``), computed by
+:func:`..ops.fft.causal_conv_time` on ``torch.fft`` over the chronological
+history from the ring followed by the new spectra (:func:`_stream_conv`).
+The JAX package's other stream cores (ring scans, correlation windows,
+the CHRONO history) are not ported: the sequential :func:`process_block`
+loop is the reference semantics where the conv core does not apply.
 """
 
 from __future__ import annotations
@@ -34,7 +47,8 @@ import math
 
 import torch
 
-from ..ops.fft import copy_and_pad, ir_to_spectra, next_power_of_two
+from ..ops.fft import (causal_conv_khat, causal_conv_time, copy_and_pad, ir_to_spectra,
+                       irdft_block, next_power_of_two, rdft_block)
 from ..ops.spectral import fdl_mac
 
 
@@ -153,11 +167,11 @@ def _engine_step(cfg: UniformConfig, state: UniformState, buffer_spec: torch.Ten
     """Write the block spectrum into the ring, form ``conv = pre_multiplied
     + spec * ir[0]`` and inverse-transform (``src/fft_convolver.rs:234-267``).
     Returns the full ``2B`` inverse buffer."""
-    state.segments[state.current] = buffer_spec
+    state.segments[..., state.current, :] = buffer_spec
     if recompute_pre:
         state.pre_multiplied = fdl_mac(state.segments, state.segments_ir,
                                        state.current, state.active_segs)
-    conv = state.pre_multiplied + buffer_spec * state.segments_ir[0]
+    conv = state.pre_multiplied + buffer_spec * state.segments_ir[..., 0, :]
     return torch.fft.irfft(conv, n=cfg.fft_size)
 
 
@@ -167,21 +181,153 @@ def _advance_ring(cfg: UniformConfig, state: UniformState,
     buffer, save the new overlap, decrement the ring head."""
     state.input_buffer.zero_()
     state.input_fill = 0
-    state.overlap = fft_buffer[cfg.block_size:].clone()
+    state.overlap = fft_buffer[..., cfg.block_size:].clone()
     state.current = state.current - 1 if state.current > 0 else state.active_segs - 1
 
 
 def process_block(cfg: UniformConfig, state: UniformState,
                   x: torch.Tensor) -> torch.Tensor:
     """Process exactly one full block (the ``input_buffer_was_empty`` pass of
-    ``src/fft_convolver.rs:215-295``).  Returns ``y`` ``[block_size]``."""
+    ``src/fft_convolver.rs:215-295``).  ``x [..., block_size]``; leading
+    axes are voices of one lockstep state.  Returns ``y`` of ``x``'s shape."""
     if state.active_segs == 0:
-        return torch.zeros(cfg.block_size, device=x.device)
+        return torch.zeros_like(x)
     spec = torch.fft.rfft(x, n=cfg.fft_size)
     fft_buffer = _engine_step(cfg, state, spec, True)
-    y = fft_buffer[: cfg.block_size] + state.overlap
+    y = fft_buffer[..., : cfg.block_size] + state.overlap
     _advance_ring(cfg, state, fft_buffer)
     return y
+
+
+def meta_size(seg_count: int, t: int) -> int:
+    """Block-axis DFT length of a ``t``-block stream: the smallest power of
+    two that holds the ``seg_count - 1`` history rows and the ``t`` new
+    ones."""
+    return next_power_of_two(seg_count - 1 + t)
+
+
+def _table(cfg: UniformConfig, state: UniformState) -> torch.Tensor:
+    """The IR table with partitions ``>= active_segs`` zeroed: the stream
+    kernel of an engine shrunk by :func:`update`."""
+    if state.active_segs == cfg.seg_count:
+        return state.segments_ir
+    live = torch.arange(cfg.seg_count, device=state.segments_ir.device) < state.active_segs
+    return state.segments_ir * live[:, None]
+
+
+def stream_khat(cfg: UniformConfig, state: UniformState, t: int) -> torch.Tensor:
+    """The stream MAC's kernel meta-spectra for ``t``-block calls of
+    :func:`process_stream` (``stream_khat``,
+    ``fft_convolution_tpu/models/uniform.py:356``): the block-axis DFT of the
+    activity-masked table at :func:`meta_size`.  Input-independent between
+    IR updates; valid for every ``t`` with the same meta size
+    (:func:`..ops.fft.causal_conv_time` refuses another)."""
+    return causal_conv_khat(_table(cfg, state), meta_size(cfg.seg_count, t))
+
+
+def ring_from_ext(ext: torch.Tensor, end: int, n: int,
+                  current: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A full ring rebuilt from a chronological spectra sequence ``ext``
+    (block axis dim -2) whose newest block is row ``end - 1``, for the ring
+    head ``current`` after those blocks (``rebuild_roll``,
+    ``fft_convolution_tpu/models/uniform.py:463``).  Slot ``(current + d) %
+    n`` holds the block of delay ``d`` (``d = n`` in the head slot).
+    Returns ``(segments, by_delay)``; ``by_delay[..., d - 1, :]`` is the
+    block of delay ``d``."""
+    by_delay = ext[..., end - n:end, :].flip(-2)
+    return by_delay.roll(current + 1, dims=-2), by_delay
+
+
+def _stream_conv(cfg: UniformConfig, state: UniformState, specs: torch.Tensor,
+                 kern_hat: torch.Tensor | None = None) -> torch.Tensor:
+    """The MAC of ``t`` blocks' spectra ``specs [..., T, B+1]`` as one causal
+    convolution along the block axis (``_stream_conv``,
+    ``fft_convolution_tpu/models/uniform.py:378``); updates ``segments``,
+    ``current`` and ``pre_multiplied`` in place and returns ``conv [..., T,
+    B+1]``.  Precondition: ``current < active_segs`` (the caller checks).
+    ``_stream_conv.calls`` counts the calls.
+
+    History: the ``n - 1`` ring rows before the new blocks, oldest first.
+    With a full ring (``active == n``) they are every slot but the head's,
+    read backwards from ``current + 1``; a shrunk ring gathers them modulo
+    ``active`` (rows of delay ``>= active`` meet zeroed partitions).  The
+    ring is rebuilt from the same sequence; a full ring takes
+    ``pre = conv[T-1] - X[T-1] * ir[0]`` (the identity that defines it,
+    ``src/fft_convolver.rs:256-261``), a shrunk one the masked MAC at the
+    head before the last decrement."""
+    _stream_conv.calls += 1
+    n, t = cfg.seg_count, specs.shape[-2]
+    active, cur = state.active_segs, state.current
+    seg = state.segments
+    if n == 1:
+        ext = specs
+    else:
+        if active == n:
+            hist = torch.cat([seg[..., cur + 1:, :], seg[..., :cur, :]], dim=-2).flip(-2)
+        else:
+            k = torch.arange(n - 1, device=seg.device)
+            hist = seg[..., (cur + n - 1 - k) % active, :]
+        ext = torch.cat([hist, specs], dim=-2)
+    kern = state.segments_ir if kern_hat is not None else _table(cfg, state)
+    convs = causal_conv_time(ext, kern, t, kern_hat=kern_hat, m=meta_size(n, t))
+    cur_f = (cur - t) % active
+    if active == n:
+        state.segments = ring_from_ext(ext, n - 1 + t, n, cur_f)[0]
+        state.pre_multiplied = convs[..., -1, :] - specs[..., -1, :] * state.segments_ir[..., 0, :]
+    else:
+        s = torch.arange(n, device=seg.device)
+        d = (s - cur_f) % active
+        rows = (n - 1 + t) - torch.where(d == 0, active, d)
+        live = (s < active)[:, None]
+        state.segments = torch.where(live, ext[..., rows, :], seg)
+        state.pre_multiplied = fdl_mac(state.segments, state.segments_ir,
+                                       (cur_f + 1) % active, active)
+    state.current = cur_f
+    return convs
+
+
+_stream_conv.calls = 0
+
+
+def stream_conv(cfg: UniformConfig, state: UniformState, blocks: torch.Tensor,
+                kern_hat: torch.Tensor | None = None) -> torch.Tensor:
+    """``blocks [..., T, B] -> y [..., T, B]`` through the conv core with no
+    gate (``stream_conv_unguarded``,
+    ``fft_convolution_tpu/models/uniform.py:714``): the forward transforms
+    of all T blocks, :func:`_stream_conv`, the inverse transforms and a
+    vectorised overlap-add seeded by ``overlap``.  Precondition: ``current <
+    active_segs``."""
+    b = cfg.block_size
+    specs = rdft_block(blocks, cfg.fft_size)
+    outs = irdft_block(_stream_conv(cfg, state, specs, kern_hat), cfg.fft_size)
+    y = outs[..., :b] + torch.cat([state.overlap[..., None, :], outs[..., :-1, b:]], dim=-2)
+    state.overlap = outs[..., -1, b:].contiguous()
+    return y
+
+
+def process_stream(cfg: UniformConfig, state: UniformState, blocks: torch.Tensor,
+                   kern_hat: torch.Tensor | None = None) -> torch.Tensor:
+    """Batched streaming over ``blocks [..., T, B]`` (``process_stream``,
+    ``fft_convolution_tpu/models/uniform.py:1054``); the state advances in
+    place and ``y [..., T, B]`` is returned.
+
+    The JAX package's gate: the conv core (:func:`stream_conv`) when the
+    ring is clean (``current < active_segs``) and either the blocks are
+    small and the stream long (``block_size <= 2048 and T >= 8``) or the
+    caller brings the kernel meta-spectra (``kern_hat``, :func:`stream_khat`
+    for this ``T``).  Otherwise the sequential :func:`process_block` loop,
+    the exact semantics of the reference's ring (its scan counterpart is
+    ``_stream_ring_scan``).  ``active_segs == 0`` returns zeros and leaves
+    the state alone.  The scalars are host ints, so the gate costs no device
+    round trip."""
+    if state.active_segs == 0:
+        return blocks.new_zeros(blocks.shape)
+    t = blocks.shape[-2]
+    use_conv = (cfg.block_size <= 2048 and t >= 8) or kern_hat is not None
+    if use_conv and state.current < state.active_segs:
+        return stream_conv(cfg, state, blocks, kern_hat)
+    return torch.stack([process_block(cfg, state, blocks[..., i, :]) for i in range(t)],
+                       dim=-2)
 
 
 def process_partial(cfg: UniformConfig, state: UniformState, chunk: torch.Tensor,

@@ -75,9 +75,11 @@ def causal_conv_khat(kern: torch.Tensor, m: int) -> torch.Tensor:
     table's DFT along the block axis (dim -2), zero-padded to ``m``
     meta-bins — counterpart of ``causal_conv_khat``
     (``fft_convolution_tpu/ops/fft.py:424``).  ``kern`` is ``complex64
-    [..., N, B+1]``; returns ``complex64 [..., m, B+1]``.  Precompute it
-    once per (table, m) and pass it as ``kern_hat=``."""
-    return torch.fft.fft(kern, n=m, dim=-2)
+    [..., N, B+1]``; returns ``complex64 [..., m, B+1]``, stored bins-major
+    (the transpose of a contiguous ``[..., B+1, m]``, the layout
+    :func:`causal_conv_time` multiplies in).  Precompute it once per (table,
+    m) and pass it as ``kern_hat=``."""
+    return torch.fft.fft(kern.mT, n=m, dim=-1).mT
 
 
 def causal_conv_time(ext: torch.Tensor, kern: torch.Tensor, t_out: int,
@@ -100,7 +102,13 @@ def causal_conv_time(ext: torch.Tensor, kern: torch.Tensor, t_out: int,
     ``m``: meta-DFT size, a power of two ``>= Lt`` (default the smallest);
     callers whose rows would read wrapped indices size it so the reads land
     in the zero pad.  ``row0``: first output row (default ``N - 1``, the
-    full-history position).  Returns ``complex64 [..., t_out, B+1]``.
+    full-history position).  Returns ``complex64 [..., t_out, B+1]``, a
+    view of bins-major storage.
+
+    The block-axis transforms run bins-major (``[..., B+1, m]``, the
+    transform axis contiguous): cuFFT along a strided dim -2 took 2-2.7x
+    the time of the same rows laid out along dim -1 (``chip_smoke.py``
+    phase 15).  The zero pad to ``m`` writes the transposed copy.
     """
     lt, n = ext.shape[-2], kern.shape[-2]
     if m is None:
@@ -112,8 +120,8 @@ def causal_conv_time(ext: torch.Tensor, kern: torch.Tensor, t_out: int,
         raise ValueError(f"kern_hat was built for m={khat.shape[-2]} meta-bins "
                          f"but this call needs m={m}")
     r0 = n - 1 if row0 is None else row0
-    out = torch.fft.ifft(torch.fft.fft(ext, n=m, dim=-2) * khat, dim=-2)
-    return out[..., r0:r0 + t_out, :]
+    out = torch.fft.ifft(torch.fft.fft(ext.mT, n=m, dim=-1) * khat.mT, dim=-1)
+    return out[..., r0:r0 + t_out].mT
 
 
 def generate_sinusoid(num_samples: int, freq: float, sample_rate: float,

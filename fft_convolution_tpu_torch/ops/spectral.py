@@ -14,11 +14,13 @@ def fdl_mac(segments: torch.Tensor, segments_ir: torch.Tensor,
     ``sum_i segments_ir[i] * segments[(current + i) % active]``
     (``src/fft_convolver.rs:244-255``).
 
-    The ring index is taken modulo ``active``, not ``seg_count``: after an
-    ``update`` to a shorter IR the kept history is re-indexed modulo the
-    new active count, as in the reference.  Returns ``complex64 [B + 1]``.
+    The partition axis is dim -2 (``[..., N, B + 1]``); leading axes batch
+    (a farm's voices).  The ring index is taken modulo ``active``, not
+    ``seg_count``: after an ``update`` to a shorter IR the kept history is
+    re-indexed modulo the new active count, as in the reference.  Returns
+    ``complex64 [..., B + 1]``.
     """
     if active <= 1:
-        return torch.zeros_like(segments[0])
+        return torch.zeros_like(segments[..., 0, :])
     idx = (current + torch.arange(1, active, device=segments.device)) % active
-    return (segments_ir[1:active] * segments[idx]).sum(dim=0)
+    return (segments_ir[..., 1:active, :] * segments[..., idx, :]).sum(dim=-2)

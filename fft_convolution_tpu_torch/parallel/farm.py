@@ -8,9 +8,10 @@ leading voice axis (``segments``/``segments_ir`` ``complex64 [V, N, B+1]``,
 and the scalars (``current``, ``input_fill``, ``active_segs``) are one host
 int for all voices.  :mod:`.farm2` builds its head and tail0 stages here.
 
-The uniform farm's batched stream (``farm_khat``, ``farm_stream``) and its
-mesh placement are not ported: they need ``uniform.stream_conv_farm``
-(ROADMAP A7) and a device mesh (A11).
+:func:`farm_stream` runs the voices' clean lockstep rings through the
+uniform engine's conv core over the voice axis (the JAX package's
+``uniform.stream_conv_farm``); the mesh placement is not ported (ROADMAP
+A11).
 """
 
 from __future__ import annotations
@@ -19,7 +20,6 @@ import torch
 
 from ..models import uniform
 from ..ops.fft import rdft_block
-from ..ops.spectral import fdl_mac
 
 
 def device_budget(device: torch.device) -> int | None:
@@ -105,19 +105,28 @@ def farm_step(cfg: uniform.UniformConfig, state: uniform.UniformState,
               x: torch.Tensor) -> torch.Tensor:
     """One block for every voice (``farm_step``,
     ``fft_convolution_tpu/parallel/farm.py:98``): ``x [V, B] -> y [V, B]``,
-    :func:`uniform.process_block` batched over the voice axis."""
-    b, cur = cfg.block_size, state.current
-    if state.active_segs == 0:
-        return torch.zeros_like(x)
-    spec = rdft_block(x, cfg.fft_size)
-    state.segments[:, cur] = spec
-    # fdl_mac indexes the partition axis first: hand it voice-inner views
-    state.pre_multiplied = fdl_mac(state.segments.transpose(0, 1),
-                                   state.segments_ir.transpose(0, 1), cur,
-                                   state.active_segs)
-    out = torch.fft.irfft(state.pre_multiplied + spec * state.segments_ir[:, 0],
-                          n=cfg.fft_size)
-    y = out[:, :b] + state.overlap
-    state.overlap = out[:, b:].contiguous()
-    state.current = cur - 1 if cur > 0 else state.active_segs - 1
-    return y
+    :func:`uniform.process_block` over the voice axis."""
+    return uniform.process_block(cfg, state, x)
+
+
+def farm_khat(cfg: uniform.UniformConfig, state: uniform.UniformState,
+              t: int) -> torch.Tensor:
+    """Every voice's stream kernel meta-spectra for ``t``-block calls
+    (``farm_khat``, ``fft_convolution_tpu/parallel/farm.py:128``):
+    :func:`uniform.stream_khat` over the voice axis, ``[V, m, B+1]``.
+    Rebuild after :func:`farm_update`; pass to :func:`farm_stream`."""
+    return uniform.stream_khat(cfg, state, t)
+
+
+def farm_stream(cfg: uniform.UniformConfig, state: uniform.UniformState,
+                blocks: torch.Tensor, kern_hat: torch.Tensor | None = None) -> torch.Tensor:
+    """Stream ``blocks [T, V, B] -> [T, V, B]`` (``farm_stream``,
+    ``fft_convolution_tpu/parallel/farm.py:143``); the state advances in
+    place.  Full clean rings (``active_segs == seg_count``, ``current <
+    active_segs``; the lockstep scalars are shared) take the conv core
+    over the voice axis (:func:`uniform.stream_conv`) whatever ``T``;
+    otherwise the per-block :func:`farm_step` loop."""
+    if state.active_segs == cfg.seg_count and state.current < state.active_segs:
+        return uniform.stream_conv(cfg, state, blocks.transpose(0, 1),
+                                   kern_hat).transpose(0, 1).contiguous()
+    return torch.stack([farm_step(cfg, state, xt) for xt in blocks])

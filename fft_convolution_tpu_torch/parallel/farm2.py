@@ -27,9 +27,15 @@ maps its states row for row.  State tensors are updated in place; the
 lockstep scalars are host ints.  Updates keep every ring full at stage
 capacity (``PARITY.md`` divergence 5).
 
-Not ported: the short-IR farm (``cfg.tail is None``: it streams through
-``two_stage.process_stream_aligned``, ROADMAP A7) and the mesh forms
-(``farm2_pspecs``, ``farm2_shard``, ``farm2_stream_sharded``; A11).
+The short-IR farm (``max_response_length <= 2 x tail block``, no big tail:
+``cfg.tail is None``) keeps a voice-stacked
+:class:`~..models.two_stage.TwoStageState` and streams through
+:func:`..models.two_stage.process_stream_aligned` over the voice axis, each
+small stage on the uniform conv core (``farm2_stream``'s ``cfg.tail is
+None`` branch, ``fft_convolution_tpu/parallel/farm2.py:1071-1079``).
+
+Not ported: the mesh forms (``farm2_pspecs``, ``farm2_shard``,
+``farm2_stream_sharded``; ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -39,8 +45,8 @@ from typing import Callable
 
 import torch
 
-from ..models import uniform
-from ..models.two_stage import TwoStageConfig, compute_tail_block_size
+from ..models import two_stage, uniform
+from ..models.two_stage import TwoStageConfig, TwoStageState, compute_tail_block_size
 from ..ops import cuda_farm_mac
 from ..ops.cuda_engine import to_bf16
 from ..ops.fft import (causal_conv_khat, causal_conv_time, irdft_block,
@@ -142,12 +148,13 @@ def _write_tail_table(cfg: TwoStageConfig, table: torch.Tensor, irs: torch.Tenso
 
 def farm2_init(irs, block_size: int, max_response_length: int,
                tail_dtype: torch.dtype = torch.float32, hbm_budget_bytes="auto",
-               device=None) -> tuple[TwoStageConfig, Farm2State]:
+               device=None) -> tuple[TwoStageConfig, Farm2State | TwoStageState]:
     """V two-stage voices from ``irs [V, ir_len]`` (``farm2_init``,
     ``fft_convolution_tpu/parallel/farm2.py:231``) on ``device`` (default:
     where ``irs`` is).  ``tail_dtype=torch.bfloat16`` stores the big tail's
     ring and table as bf16 pairs (half the bytes kernel B5 reads; arithmetic
-    stays float32).
+    stays float32).  A short-IR farm (no big tail) gets a voice-stacked
+    :class:`TwoStageState`.
 
     ``hbm_budget_bytes``: the eager capacity guard.  A farm whose estimate
     (:func:`farm2_bytes_per_voice` x V, at the largest call the farm takes)
@@ -169,18 +176,16 @@ def farm2_init(irs, block_size: int, max_response_length: int,
     if tail_dtype not in TAIL_DTYPES:
         raise ValueError(f"tail_dtype must be one of {TAIL_DTYPES}, got {tail_dtype}")
     tb, n_t = _tail_segments(block_size, max_response_length)
-    if max_response_length <= 2 * tb:
-        raise NotImplementedError(
-            f"the short-IR farm (max_response_length {max_response_length} <= 2 x "
-            f"tail block {tb}) streams through two_stage.process_stream_aligned, "
-            "which is not ported yet (ROADMAP A7)")
     if hbm_budget_bytes == "auto":
         hbm_budget_bytes = farm.device_budget(irs.device)
     if hbm_budget_bytes is not None:
         tail_item = 4 if tail_dtype == torch.bfloat16 else 8
-        per_voice = farm2_bytes_per_voice(block_size, max_response_length,
-                                          max_blocks_per_call(tb // block_size, n_t),
-                                          tail_item)
+        # the short-IR farm takes calls of any length: its estimate is at one
+        # period
+        per_voice = farm2_bytes_per_voice(
+            block_size, max_response_length,
+            max_blocks_per_call(tb // block_size, n_t) if n_t else tb // block_size,
+            tail_item)
         est = v * per_voice
         if est > hbm_budget_bytes:
             fit = max(1, int(hbm_budget_bytes // per_voice))
@@ -194,6 +199,8 @@ def farm2_init(irs, block_size: int, max_response_length: int,
                 + ". Pass hbm_budget_bytes=<bytes>/None to retune/disable this "
                 "check (farm2_bytes_per_voice is the model).")
     dev = irs.device
+    if n_t == 0:
+        return _short_init(irs, block_size, max_response_length, tb)
     head_cfg, head = farm.farm_init(_stage_slice(irs, 0, tb, tb), block_size, tb)
     tail0_cfg, tail0 = farm.farm_init(_stage_slice(irs, tb, tb, tb), block_size, tb)
     tail_cfg = uniform.make_config(tb, n_t * tb)
@@ -219,6 +226,44 @@ def farm2_init(irs, block_size: int, max_response_length: int,
     return cfg, state
 
 
+def _short_init(irs: torch.Tensor, block_size: int, max_response_length: int,
+                tb: int) -> tuple[TwoStageConfig, TwoStageState]:
+    """The short-IR farm: head and (where the IR exceeds one tail block)
+    tail0 voice-stacked from their slices of ``irs``, an empty big tail, and
+    the period buffers ``[V, tb]`` (the stages as
+    :func:`..models.two_stage.init` splits them)."""
+    v, dev = irs.shape[0], irs.device
+    head_len = min(max_response_length, tb)
+    head_cfg, head = farm.farm_init(_stage_slice(irs, 0, head_len, head_len), block_size,
+                                    head_len)
+    tail0_cfg = None
+    if max_response_length > tb:
+        t0_len = max_response_length - tb
+        tail0_cfg, tail0 = farm.farm_init(_stage_slice(irs, tb, t0_len, t0_len), block_size,
+                                          t0_len)
+    else:
+        _, tail0 = uniform.empty(block_size, dev)
+    _, tail = uniform.empty(tb, dev)
+    cfg = TwoStageConfig(head_block=block_size, tail_block=tb, head=head_cfg,
+                         tail0=tail0_cfg, tail=None)
+    state = TwoStageState(head=head, tail0=tail0, tail=tail,
+                          **{k: torch.zeros((v, tb), device=dev)
+                             for k in two_stage._BUFFERS},
+                          tail_fill=0, precalc_pos=0)
+    return cfg, state
+
+
+def _small_stages(cfg: TwoStageConfig, state):
+    """``(config, voice-stacked state, first IR sample)`` of the head and,
+    where it exists, tail0."""
+    yield cfg.head, state.head, 0
+    if cfg.tail0 is not None:
+        yield cfg.tail0, state.tail0, cfg.tail_block
+
+
+_PENDING = ("tail_output0", "tail_precalc0", "tail_output", "tail_precalc")
+
+
 def max_blocks_per_call(period: int, tail_segments: int) -> int:
     """The per-call ceiling in head blocks: ``min(N, 16)`` whole periods
     (the phased core's bound, ``fft_convolution_tpu/api_farm.py:163-171``)."""
@@ -234,13 +279,18 @@ def farm2_update(cfg: TwoStageConfig, state: Farm2State, new_irs) -> None:
     response zero-padded to capacity, ``PARITY.md`` divergence 5).  Input
     history and phase are kept; pending tail outputs and ``hist`` are
     zeroed, and every voice's next call suppresses its first period's tail0
-    contribution.  Call at a period boundary."""
-    tb = cfg.tail_block
-    new_irs = torch.as_tensor(new_irs, dtype=torch.float32, device=state.hist.device)
-    for scfg, stage, lo in ((cfg.head, state.head, 0), (cfg.tail0, state.tail0, tb)):
+    contribution (the short-IR farm zeroes its four pending period buffers
+    instead).  Call at a period boundary."""
+    new_irs = torch.as_tensor(new_irs, dtype=torch.float32,
+                              device=state.head.segments.device)
+    for scfg, stage, lo in _small_stages(cfg, state):
         farm.farm_update(scfg, stage,
                          _stage_slice(new_irs, lo, scfg.ir_len,
                                       scfg.seg_count * scfg.block_size), scfg.ir_len)
+    if cfg.tail is None:
+        for k in _PENDING:
+            getattr(state, k).zero_()
+        return
     _write_tail_table(cfg, state.tail.table, new_irs,
                       torch.arange(new_irs.shape[0], device=new_irs.device))
     state.tail.overlap.zero_()
@@ -258,15 +308,18 @@ def farm2_update_voices(cfg: TwoStageConfig, state: Farm2State, voice_idx,
     and suppress flags are written; every ring and the phase are untouched,
     so the other voices continue bit-identically.  ``voice_idx``: ``[K]``
     distinct indices (the caller checks); ``new_irs``: ``[K, L]``."""
-    dev = state.hist.device
-    tb = cfg.tail_block
+    dev = state.head.segments.device
     idx = torch.as_tensor(voice_idx, dtype=torch.long, device=dev).reshape(-1)
     new_irs = torch.as_tensor(new_irs, dtype=torch.float32, device=dev)
-    for scfg, stage, lo in ((cfg.head, state.head, 0), (cfg.tail0, state.tail0, tb)):
+    for scfg, stage, lo in _small_stages(cfg, state):
         padded = _stage_slice(new_irs, lo, scfg.ir_len, scfg.seg_count * scfg.block_size)
         stage.segments_ir[idx] = farm.stage_spectra(scfg, padded)
         stage.overlap[idx] = 0.0
         stage.pre_multiplied[idx] = 0.0
+    if cfg.tail is None:
+        for k in _PENDING:
+            getattr(state, k)[idx] = 0.0
+        return
     _write_tail_table(cfg, state.tail.table, new_irs, idx)
     for buf in (state.tail.pre, state.tail.overlap, state.hist, state.tail_output,
                 state.tail_precalc):
@@ -332,8 +385,7 @@ def _heads_state_out(st_h: uniform.UniformState, st_t0: uniform.UniformState,
     Returns the next call's ``hist``."""
     b = st_h.overlap.shape[-1]
     cur = (st_h.current - t) % n
-    byd = ext[:, hist0 + t - n:hist0 + t].flip(1)        # blocks t-1 .. t-n
-    st_h.segments = byd.roll(cur + 1, dims=1)
+    st_h.segments, byd = uniform.ring_from_ext(ext, hist0 + t, n, cur)
     st_h.pre_multiplied = (st_h.segments_ir[:, 1:] * byd[:, 1:]).sum(dim=1)
     st_t0.pre_multiplied = (st_t0.segments_ir[:, 1:] * byd[:, 1:]).sum(dim=1)
     st_h.current = st_t0.current = cur
@@ -367,20 +419,27 @@ def _heads_fused(cfg: TwoStageConfig, st_h: uniform.UniformState,
     return y, _heads_state_out(st_h, st_t0, ext, outs, t, n, 2 * n - 1)
 
 
-def farm2_stream(cfg: TwoStageConfig, state: Farm2State, blocks: torch.Tensor,
-                 step: Callable = cuda_farm_mac.phased_step,
-                 head_khat: torch.Tensor | None = None) -> torch.Tensor:
+def farm2_stream(cfg: TwoStageConfig, state: Farm2State | TwoStageState,
+                 blocks: torch.Tensor, step: Callable = cuda_farm_mac.phased_step,
+                 head_khat: torch.Tensor | dict | None = None) -> torch.Tensor:
     """Stream ``blocks [T, V, B] -> [T, V, B]`` (``farm2_stream``,
     ``fft_convolution_tpu/parallel/farm2.py:1040``), ``T`` a multiple of
     the period; the state advances in place.  ``step`` is the big tail's
     phased step (:func:`..ops.cuda_farm_mac.phased_step`,
     ``phased_step_packed`` for bf16 storage, or ``phased_step_plain``).
-    ``head_khat``: :func:`farm2_head_khat` for this call's meta length."""
+    ``head_khat``: :func:`farm2_head_khat` for this call's meta length; for
+    the short-IR farm, :func:`..models.two_stage.stream_khats` of the
+    voice-stacked state for this ``T``, which sends both small stages to
+    the uniform conv core (their rings are full and clean: every update is
+    at full capacity)."""
     b, tb, p = cfg.head_block, cfg.tail_block, cfg.period
     t, v = blocks.shape[:2]
     q = t // p
     if q * p != t or q == 0:
         raise ValueError(f"T={t} must be a positive multiple of the period {p}")
+    if cfg.tail is None:
+        return two_stage.process_stream_aligned(cfg, state, blocks.transpose(0, 1),
+                                                head_khat).transpose(0, 1).contiguous()
     vx = blocks.transpose(0, 1)                            # [V, T, B]
     y, state.hist = _heads_fused(cfg, state.head, state.tail0, vx, state.hist,
                                  state.suppress, head_khat)

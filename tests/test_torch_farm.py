@@ -25,6 +25,7 @@ from fft_convolution_tpu.parallel import farm as jfarm
 from fft_convolution_tpu.parallel import farm2 as jfarm2
 from fft_convolution_tpu_torch import ReverbFarm, interop
 from fft_convolution_tpu_torch.api_two_stage import TwoStageFFTConvolver
+from fft_convolution_tpu_torch.models import uniform
 from fft_convolution_tpu_torch.ops import cuda_farm_mac
 from fft_convolution_tpu_torch.ops import fft as tfft
 from fft_convolution_tpu_torch.ops.fft import packed_to_complex
@@ -620,10 +621,33 @@ def test_reverb_farm_update_voices_subset_and_contracts():
 
 
 def test_reverb_farm_update_voice_short_ir_farm():
-    """The short-IR farm (no big tail stage) is ROADMAP A7."""
+    """Per-voice update on the short-IR farm (no big tail stage; ports
+    tests/test_api_farm.py:296-315): each voice matches its own two-stage
+    engine, and the whole farm the JAX package's, call by call; both calls
+    stream through the conv core (head and tail0)."""
     rng = np.random.default_rng(46)
-    with pytest.raises(NotImplementedError, match="A7"):
-        ReverbFarm(_irs(rng, V, 120), B, 120, device="cpu")
+    v, b = 3, 64
+    irs = rng.standard_normal((v, 120)).astype(np.float32) * 0.05
+    farm_ = ReverbFarm(irs, b, irs.shape[1], device="cpu")
+    theirs = JaxReverbFarm(irs, b, irs.shape[1])
+    assert farm_.cfg.tail is None and farm_.max_blocks_per_call is None
+    p = farm_.period
+    t = 2 * p
+    x = rng.standard_normal((2 * t, v, b)).astype(np.float32)
+    new_ir = rng.standard_normal(100).astype(np.float32) * 0.05
+    calls = uniform._stream_conv.calls
+    _close(farm_.process(x[:t]), theirs.process(x[:t]), ATOL, "first call")
+    assert uniform._stream_conv.calls - calls == 2
+    farm_.update_voice(2, new_ir)
+    theirs.update_voice(2, new_ir)
+    y = farm_.process(x[t:])
+    _close(y, theirs.process(x[t:]), ATOL, "after update_voice")
+    for voice in range(v):
+        e = TwoStageFFTConvolver(irs[voice], b, irs.shape[1], device="cpu")
+        e.process(x[:t, voice].reshape(-1))
+        if voice == 2:
+            e.update_extension(new_ir)
+        _close(_voice(y, voice), e.process(x[t:, voice].reshape(-1)), ATOL, f"voice {voice}")
 
 
 def test_reverb_farm_head_dft_precision_names():
