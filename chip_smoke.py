@@ -80,7 +80,32 @@ after; the flagship shape is block 128 and a 10 s 48 kHz IR.
     device microseconds of one call (``torch.profiler``).  Then, printed
     only: the conv core at B4's shape (30 s IR, T = 64) beside B4's device
     time from phase 14, and cuFFT along dim -2 against the same rows laid
-    out along dim -1.  A ``{"batched_streams": ...}`` line records it all.
+    out along dim -1.  A ``{"batched_streams": ...}`` line records it all;
+16. the host runtime (``runtime/``, ``utils/``, ``examples/``): the native
+    library built with g++; ``HostEngine`` (numpy blocks in and out) over
+    B1, B2 and B3 for 512 blocks against the same wrapper fed card tensors
+    (1e-6, and whether bit-equal); the host-callback latency of B1, B1p, B2
+    and B3 over 2000 warm numpy blocks, the copies and the sync included
+    (median gated below the 2.667 ms block; p99 and max printed) beside the
+    card-tensor latency of phases 5 and 9; ``StreamingConvolver`` over the
+    flagship ``TwoStageFFTConvolver`` fed 441-sample pushes, then a push
+    back to the block boundary and a block-aligned push of three periods
+    (the batched route: the conv core must run), against a float64
+    convolution (1e-4); ``RealTimeDispatcher`` over B3 fed 441-sample
+    pushes for 4000 blocks by the lockstep callback of ``serve_morph.serve``
+    (it waits on the dispatcher, so it cannot underrun: its wall time is
+    throughput) with a morph posted through ``RealTimeDispatcher.update`` a
+    third of the way in, the windows before the morph and after the fade
+    against float64 convolutions with the two IRs (1e-4); the same over
+    1000 blocks by the wall-clock callback of ``serve_morph.serve_paced``
+    (one 441-sample buffer in and out each 9.19 ms, one buffer and one
+    block of output latency): underruns and lost input printed, not gated,
+    and the windows gated only when no underrun shifted the output;
+    checkpoints of a mid-stream B1p
+    state and a mid-fade B3 state restored into fresh wrappers, 64 more
+    blocks bit-equal to the originals; the ``serve_morph`` and
+    ``reverb_farm`` examples (8 voices of 4 s IRs) as functions.  A
+    ``{"host_runtime": ...}`` line records it.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches, error and times: the
@@ -139,6 +164,15 @@ BATCHED_CALLS = 2                 # parity calls a shape, state carried
 BATCHED_WARMUP, BATCHED_TIMED, BATCHED_PROFILED = 2, 8, 3
 LOOP_BLOCKS, LOOP_RUNS = 640, 3   # the block loop's timing window (10 flagship periods)
 YARD_WARMUP, YARD_TIMED = 4, 20   # conv-core calls at B4's shape
+# phase 16: the host runtime
+HOST_PARITY_BLOCKS, HOST_PARITY_TOL = 512, 1e-6  # the adapter only moves data
+HOST_LATENCY_BLOCKS, HOST_LATENCY_WARMUP = 2000, 64
+BLOCK_MS = BLOCK / SR * 1e3       # 2.667 ms: a callback must return within its block
+PUSH, HOST_STREAM_PUSHES = 441, 200               # 441-sample host buffers
+DISPATCH_BLOCKS, PACED_BLOCKS = 4000, 1000
+STREAM_ALIGNED_PERIODS = 3        # the block-aligned push, in the flagship's periods
+CKPT_BLOCKS, CKPT_CONTINUE = 100, 64
+EXAMPLE_VOICES, EXAMPLE_IR_SECONDS = 8, 4
 # one H100 SXM: the HBM3 rate and the FP32 peak outside the tensor cores
 # (NVIDIA's data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
@@ -524,6 +558,204 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
         record[f"cufft {rows}x{BLOCK + 1}"] = {"dim_-2_us": us[0], "dim_-1_us": us[1]}
         print(f"cuFFT of {rows} rows x {BLOCK + 1} bins: along dim -2 {us[0]!r} device us, "
               f"the same laid out along dim -1 {us[1]!r}", flush=True)
+    return record
+
+
+def host_runtime(dev, counts: Counts, ir: np.ndarray, ir_b: np.ndarray, x_host: np.ndarray,
+                 engines: dict, timing: dict) -> dict:
+    """Phase 16 (module docstring): the host runtime over the per-block
+    wrappers in ``engines`` (B1, B1p, B2, B3 at the flagship shape) and the
+    flagship IRs ``ir`` and ``ir_b``; ``timing``: phases 5 and 9's
+    card-tensor latencies, printed beside the host-callback ones.  Returns
+    a record."""
+    from fft_convolution_tpu_torch import TwoStageFFTConvolver, runtime
+    from fft_convolution_tpu_torch.examples import reverb_farm, serve_morph
+    from fft_convolution_tpu_torch.models import uniform
+    from fft_convolution_tpu_torch.runtime.host import HostEngine
+    from fft_convolution_tpu_torch.runtime.stream import StreamingConvolver
+    from fft_convolution_tpu_torch.serving import CudaCrossfadeConvolver, CudaFFTConvolver
+    from fft_convolution_tpu_torch.utils import checkpoint
+    from fft_convolution_tpu_torch.utils.profiling import LatencyRecorder
+
+    record = {}
+    t0 = time.perf_counter()
+    lib_path = runtime.build()
+    runtime.load()
+    print(f"host runtime: built in {time.perf_counter() - t0:.2f} s -> {lib_path.name}",
+          flush=True)
+
+    # numpy blocks through HostEngine against the same wrapper on card tensors
+    xs_np = x_host[:HOST_PARITY_BLOCKS]
+    xs_dev = torch.from_numpy(xs_np).to(dev)
+    for label in ("B1", "B2", "B3"):
+        host, twin = HostEngine(engines[label].clone()), engines[label].clone()
+        y_host = counts.drive(f"{label} through HostEngine",
+                              lambda: np.stack([host.process(xb) for xb in xs_np]),
+                              {label: HOST_PARITY_BLOCKS})
+        y_dev = run_blocks(twin, xs_dev).cpu().numpy()
+        err = float(np.abs(y_host.astype(np.float64) - y_dev).max())
+        equal = bool(np.array_equal(y_host, y_dev))
+        gate(f"{label} HostEngine on numpy blocks vs the wrapper on card tensors "
+             f"({HOST_PARITY_BLOCKS} blocks)", err, HOST_PARITY_TOL)
+        print(f"{label} HostEngine bit-equal to the card-tensor path: {equal}", flush=True)
+        record[f"{label} adapter"] = {"max_abs_err": err, "bit_equal": equal}
+
+    # host-callback latency: a numpy block in, a numpy block out, copies and sync included
+    lat = {}
+    for label in ("B1", "B1p", "B2", "B3"):
+        host = HostEngine(engines[label])
+        rec = LatencyRecorder(block_size=BLOCK, sample_rate=SR)
+        blocks = x_host[:HOST_LATENCY_WARMUP + HOST_LATENCY_BLOCKS]
+
+        def callbacks(host=host, rec=rec, blocks=blocks):
+            for i, xb in enumerate(blocks):
+                if i < HOST_LATENCY_WARMUP:
+                    host.process(xb)
+                    continue
+                with rec.measure():
+                    host.process(xb)
+
+        counts.drive(f"{label} host callbacks", callbacks, {label: len(blocks)})
+        rep = rec.report()
+        rep["max_ms"] = max(rec.samples_s) * 1e3
+        card = timing[label]["kernel"]
+        rep["card_tensor_sync_ms"] = [r["sync_ms"] for r in card]
+        rep["card_tensor_event_ms"] = [r["event_ms"] for r in card]
+        lat[label] = rep
+        print(f"host-callback latency {label} over {rep['n_blocks']} warm numpy blocks: "
+              f"median {rep['p50_ms']!r} ms, p99 {rep['p99_ms']!r} ms, max {rep['max_ms']!r} "
+              f"ms, {rep['deadline_misses']} over the {BLOCK_MS!r} ms block; card tensors "
+              f"(phases 5/9): sync median {rep['card_tensor_sync_ms']!r} ms, event median "
+              f"{rep['card_tensor_event_ms']!r} ms", flush=True)
+        if not rep["p50_ms"] < BLOCK_MS:
+            fail(f"{label}: host-callback median {rep['p50_ms']!r} ms >= {BLOCK_MS!r} ms")
+    record["host_callback_latency"] = lat
+
+    # StreamingConvolver over the batched two-stage engine: 441-sample pushes
+    # (the sub-block route), a push back to the block boundary, a
+    # block-aligned push of whole periods (the batched route), 441 again
+    eng = TwoStageFFTConvolver(ir, BLOCK, len(ir), device=dev)
+    ragged = PUSH * HOST_STREAM_PUSHES
+    back = -ragged % BLOCK
+    aligned = STREAM_ALIGNED_PERIODS * eng.cfg.tail_block
+    sizes = [PUSH] * HOST_STREAM_PUSHES + [back, aligned] + [PUSH] * 10
+    x_st = x_host.reshape(-1)[:sum(sizes)]
+    starts = np.cumsum([0] + sizes[:-1])
+
+    def stream():
+        s = StreamingConvolver(eng)
+        return np.concatenate([s.push(x_st[i:i + n]) for i, n in zip(starts, sizes)])
+
+    t0, core0 = time.perf_counter(), uniform._stream_conv.calls
+    y_st = counts.drive("StreamingConvolver (441-sample and block-aligned pushes)", stream, {})
+    wall, core_calls = time.perf_counter() - t0, uniform._stream_conv.calls - core0
+    print(f"StreamingConvolver: {HOST_STREAM_PUSHES} pushes of {PUSH}, one of {back}, one "
+          f"block-aligned of {aligned}, 10 of {PUSH}; the conv core ran {core_calls} times",
+          flush=True)
+    if core_calls == 0:
+        fail("StreamingConvolver: the block-aligned push did not reach the batched route")
+    ref = conv64(torch.from_numpy(x_st).to(dev), torch.from_numpy(ir).to(dev)).cpu().numpy()
+    err = float(np.abs(y_st - ref).max())
+    gate(f"StreamingConvolver over TwoStageFFTConvolver, {len(sizes)} pushes ({len(x_st)} "
+         f"samples), vs float64 convolution", err, PARITY_TOL)
+    record["StreamingConvolver"] = {"samples": len(x_st), "aligned_push": aligned,
+                                    "conv_core_calls": core_calls, "err_f64": err,
+                                    "wall_s": wall}
+
+    # RealTimeDispatcher over B3, a morph posted a third of the way in: the
+    # lockstep callback (throughput; no underrun can occur), then the
+    # wall-clock one (real-time; underruns measured)
+    x_d = np.random.default_rng(16).standard_normal(DISPATCH_BLOCKS * BLOCK).astype(np.float32)
+    for label, blocks, paced in (("lockstep", DISPATCH_BLOCKS, False),
+                                 ("paced", PACED_BLOCKS, True)):
+        xf = CudaCrossfadeConvolver(ir, BLOCK, len(ir), crossfade_samples=XFADE_FADE,
+                                    device=dev)
+        x_run = x_d[:blocks * BLOCK]
+        serve = serve_morph.serve_paced if paced else serve_morph.serve
+        t0 = time.perf_counter()
+        y_d, disp = counts.drive(
+            f"B3 through RealTimeDispatcher, {label} callback",
+            lambda: serve(xf, x_run, ir_b, morph_at=len(x_run) // 3, push=PUSH),
+            {"B3": blocks})
+        wall = time.perf_counter() - t0
+        k = disp.update_applied_at
+        lost = len(x_run) - disp.samples_pushed
+        latency = PUSH + BLOCK if paced else 0
+        print(f"dispatcher, {label} callback: {disp.blocks_processed} blocks in {wall!r} s "
+              f"({len(x_run) / SR / wall!r}x real time), underruns {disp.underruns}, input "
+              f"samples lost {lost}, morph applied before block {k}", flush=True)
+        if disp.blocks_processed != blocks or len(y_d) != len(x_run) or k is None:
+            fail(f"dispatcher, {label}: {disp.blocks_processed} blocks, {len(y_d)} samples, "
+                 f"morph at {k}")
+        rec = {"blocks": disp.blocks_processed, "underruns": disp.underruns,
+               "input_lost": lost, "update_applied_at": k, "wall_s": wall,
+               "latency_samples": latency}
+        if disp.underruns or lost:
+            print(f"dispatcher, {label}: windows not checked, the underruns shifted the "
+                  "output", flush=True)
+        else:
+            res = serve_morph.check(y_d[latency:], x_run, ir, ir_b, k, BLOCK,
+                                    xf.cf_cfg.hold_samples, xf.cf_cfg.fading_samples)
+            gate(f"dispatcher B3, {label}, before the morph (samples {res['pre_window']}) vs "
+                 "float64 convolution with ir_a", res["pre_err"], PARITY_TOL)
+            gate(f"dispatcher B3, {label}, after the fade (samples {res['post_window']}) vs "
+                 "float64 convolution with ir_b", res["post_err"], PARITY_TOL)
+            rec.update(pre_err=res["pre_err"], post_err=res["post_err"])
+        record[f"RealTimeDispatcher {label}"] = rec
+
+    # checkpoints on the card: mid-stream B1p, mid-fade B3
+    ckdir = ROOT / "build" / "chip_smoke"
+    ckdir.mkdir(parents=True, exist_ok=True)
+    xs = torch.from_numpy(x_host[:CKPT_BLOCKS + CKPT_CONTINUE]).to(dev)
+
+    def b1p():
+        return CudaFFTConvolver(ir, BLOCK, len(ir), device=dev, storage="bf16_packed")
+
+    def b3():
+        return CudaCrossfadeConvolver(ir, BLOCK, len(ir), crossfade_samples=XFADE_FADE,
+                                      device=dev)
+
+    def checkpointed(label, make, advance):
+        conv = make()
+        advance(conv)
+        path = str(ckdir / f"{label}.npz")
+        checkpoint.save(path, conv.snapshot())
+        fresh = make()
+        fresh.restore(checkpoint.load(path, fresh.snapshot()))
+        tail = xs[CKPT_BLOCKS:]
+        return run_blocks(conv, tail), run_blocks(fresh, tail), fresh
+
+    def advance_b3(conv):
+        run_blocks(conv, xs[:CKPT_BLOCKS - 2])
+        conv.update(ir_b)
+        run_blocks(conv, xs[CKPT_BLOCKS - 2:CKPT_BLOCKS])
+        if not conv.is_crossfading():
+            fail("checkpoint: the B3 state is not mid-fade")
+
+    for label, make, advance in (("B1p", b1p, lambda c: run_blocks(c, xs[:CKPT_BLOCKS])),
+                                 ("B3", b3, advance_b3)):
+        y_orig, y_back, fresh = counts.drive(
+            f"{label} checkpoint", lambda: checkpointed(label, make, advance),
+            {label: CKPT_BLOCKS + 2 * CKPT_CONTINUE})
+        same = bool(torch.equal(y_orig, y_back))
+        print(f"{label} checkpoint: {CKPT_CONTINUE} blocks after restore bit-equal: {same}",
+              flush=True)
+        if not same or fresh.state.segments.device != dev:
+            fail(f"{label}: the restored state does not continue bit-equal on the card")
+        record[f"{label} checkpoint"] = {"bit_equal": same}
+
+    # the examples, as functions, at a small size
+    morph = counts.drive("serve_morph example",
+                         lambda: serve_morph.main(["--device", "cuda", "--blocks", "96"]),
+                         {"B3": 96})
+    farm = counts.drive("reverb_farm example",
+                        lambda: reverb_farm.main(["--device", "cuda", "--voices",
+                                                  str(EXAMPLE_VOICES), "--ir-seconds",
+                                                  str(EXAMPLE_IR_SECONDS)]),
+                        {"B5": 2})
+    record["examples"] = {"serve_morph": {key: morph[key] for key in ("pre_err", "post_err",
+                                                                      "update_applied_at")},
+                          "reverb_farm": {"err": farm["err"], "wall_s": farm["wall_s"]}}
     return record
 
 
@@ -949,6 +1181,12 @@ def main() -> None:
     batched = batched_streams(dev, counts, ir30, x_st, profiled["B4"]["device_us"])
     print(json.dumps({"batched_streams": batched}), flush=True)
     phase_done("15 batched streams")
+
+    # ---- 16. the host runtime ---------------------------------------------------
+    host = host_runtime(dev, counts, ir, ir_b, x_host,
+                        {"B1": uni, "B1p": uni_bf, "B2": two, "B3": xf}, timing)
+    print(json.dumps({"host_runtime": host}), flush=True)
+    phase_done("16 host runtime")
 
     def best(label, kind, key="event_ms"):
         return min(r[key] for r in timing[label][kind])

@@ -22,6 +22,11 @@ Public surface ported so far:
 * :class:`~fft_convolution_tpu_torch.serving.CudaStreamingConvolver` — kernel B4
 * :class:`~fft_convolution_tpu_torch.api_farm.ReverbFarm` — many voices with
   long IRs on one device, big tail on kernel B5
+
+The host side: :mod:`.runtime` (the numpy boundary ``HostEngine``, the
+native ring and block assembler, ``StreamingConvolver`` and the real-time
+dispatcher), :mod:`.utils` (WAV, checkpoints, timing, profiling) and
+:mod:`.examples`.
 """
 
 from .api import Convolution, FFTConvolver

@@ -54,6 +54,16 @@ class CrossfadeConvolver:
         n = as_signal(response, "cpu").shape[0]
         return cls(convolver, n, max_block_size, n)
 
+    @property
+    def device(self) -> torch.device:
+        """The wrapped engines' device."""
+        return self.convolver_a.device
+
+    @property
+    def cfg(self):
+        """The wrapped engines' configuration (both engines have the same)."""
+        return self.convolver_a.cfg
+
     def is_crossfading(self) -> bool:
         """(``src/crossfade_convolver.rs:85-92``)"""
         return self.cf_state.approaching
