@@ -105,14 +105,34 @@ after; the flagship shape is block 128 and a 10 s 48 kHz IR.
     state and a mid-fade B3 state restored into fresh wrappers, 64 more
     blocks bit-equal to the originals; the ``serve_morph`` and
     ``reverb_farm`` examples (8 voices of 4 s IRs) as functions.  A
-    ``{"host_runtime": ...}`` line records it.
+    ``{"host_runtime": ...}`` line records it;
+17. the mesh (``parallel/``): two gloo ranks on ``cuda:0``
+    (``parallel.mesh.run_ranks``; two processes sharing one card, so the
+    times are the collectives' cost there, not a multi-card scaling), each
+    counting every kernel wrapper's launches around each path.  ``sp`` per
+    block: ``ShardedFFTConvolver`` at the flagship shape (3750 segments,
+    1875 a rank) for 640 blocks, against ``FFTConvolver`` and a float64
+    convolution (1e-4), then an ``update`` to a 2 s IR (the shrunk-ring
+    transient) and 320 blocks against ``FFTConvolver`` with the same update;
+    the wall ms a block and the all-reduce of one block's ``[B+1]``
+    complex64 partial, a card tensor and a host tensor (median of 200).
+    ``sp`` per period: ``ShardedTwoStageConvolver`` over phase 10's first
+    60 s IR, 2 calls of 4 periods, against ``TwoStageFFTConvolver`` and
+    float64 (1e-4).  ``dp``: ``ReverbFarm(mesh=...)`` over phase 10's 128
+    IRs, 64 voices a rank, f32 and bf16 tails, 2 calls of 8 periods, each
+    rank's slab against the unsharded farm's rows computed here (1e-5; bf16
+    5e-3 of the scale; bit-equality printed), B5 (B5p) launched exactly once
+    a call on each rank and the sp paths launching nothing; each rank's
+    call latency.  A ``{"mesh": ...}`` line records it.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches, error and times: the
 kernel and plain paths' best CUDA-event medians (``ms``, ``plain_ms``), the
 least time the card could take for the kernel's work from its shapes
 (``bound_ms``, ``bound_us``, ``bound_by``; formulas in :func:`bound`),
-``library_ms`` (null: no single PyTorch call computes a step), and for B1-B4
+``library_ms`` (null: no single PyTorch call computes a step), B5's and
+B5p's ``dp_mesh`` (phase 17: ranks, launches a rank, error, call ms a
+rank), and for B1-B4
 the profile's ``device_us``, ``device_us_by_kernel`` and
 ``cuda_launches_per_step`` (1 for B1, B1p, B2 and B3, 3 for B4 and B4p,
 gated).
@@ -173,6 +193,13 @@ DISPATCH_BLOCKS, PACED_BLOCKS = 4000, 1000
 STREAM_ALIGNED_PERIODS = 3        # the block-aligned push, in the flagship's periods
 CKPT_BLOCKS, CKPT_CONTINUE = 100, 64
 EXAMPLE_VOICES, EXAMPLE_IR_SECONDS = 8, 4
+# phase 17: the mesh, two ranks on one card
+MESH_RANKS = 2
+SP_BLOCKS, SP_UPDATE_BLOCKS, SP_UPDATE_SECONDS = 640, 320, 2  # then a 2 s IR: 750 segments
+SP2_PERIODS, SP2_CALLS = 4, 2     # the sharded two-stage engine, 60 s IR
+DP_PERIODS, DP_CALLS, DP_TIMED = 8, 2, 4
+ALLREDUCE_REPS, ALLREDUCE_WARMUP = 200, 20
+MESH_SEED = 17                    # the phase's inputs, drawn on the card
 # one H100 SXM: the HBM3 rate and the FP32 peak outside the tensor cores
 # (NVIDIA's data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
@@ -228,6 +255,17 @@ class Counts:
         if got != want:
             fail(f"{label}: launch counts {got} != {want}")
         return out
+
+
+def kernel_counts() -> Counts:
+    """Every kernel wrapper of the port, B1 to B5p."""
+    from fft_convolution_tpu_torch.ops import (cuda_crossfade, cuda_engine, cuda_farm_mac,
+                                               cuda_stream, cuda_two_stage)
+
+    return Counts(B1=cuda_engine.block_step, B1p=cuda_engine.block_step_packed,
+                  B2=cuda_two_stage.block_step, B3=cuda_crossfade.block_step,
+                  B4=cuda_stream.stream, B4p=cuda_stream.stream_packed,
+                  B5=cuda_farm_mac.phased_step, B5p=cuda_farm_mac.phased_step_packed)
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -759,6 +797,200 @@ def host_runtime(dev, counts: Counts, ir: np.ndarray, ir_b: np.ndarray, x_host: 
     return record
 
 
+def farm_irs_on(dev) -> tuple[torch.Generator, torch.Tensor]:
+    """Phase 10's IRs, drawn on the card (config 5: seed 5, scale 0.002),
+    and the generator after them; the ranks of phase 17 draw the same."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    irs = torch.randn((FARM_VOICES, FARM_SECONDS * SR), generator=gen, device=dev) * FARM_SCALE
+    return gen, irs
+
+
+def mesh_inputs(dev, period: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase 17's inputs, drawn on the card: the sharded two-stage engine's
+    ``[calls, T, B]`` and the dp farm's ``[calls, T, V, B]``."""
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+    x_ts = torch.randn((SP2_CALLS, SP2_PERIODS * period, BLOCK), generator=gen, device=dev)
+    x_dp = torch.randn((DP_CALLS, DP_PERIODS * period, FARM_VOICES, BLOCK), generator=gen,
+                       device=dev)
+    return x_ts, x_dp
+
+
+def mesh_rank(rank: int, world: int, ir: np.ndarray, ir_short: np.ndarray,
+              x_sp: np.ndarray) -> dict:
+    """One rank of phase 17 (module docstring), on ``cuda:0`` beside the
+    other: the ``sp`` engines with the full inputs, the ``dp`` farm with this
+    rank's voices.  Returns outputs on the host, launch counts, times."""
+    import torch.distributed as dist
+
+    from fft_convolution_tpu_torch import (ReverbFarm, ShardedFFTConvolver,
+                                           ShardedTwoStageConvolver)
+    from fft_convolution_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    counts = kernel_counts()
+    out = {}
+
+    def counted(run):
+        counts.zero()
+        res = run()
+        torch.cuda.synchronize()
+        return res, counts.read()
+
+    # sp, per block: the flagship IR, then an update to a shorter one
+    sp = make_mesh((world,), ("sp",), "cuda")
+    sh = ShardedFFTConvolver(ir, BLOCK, len(ir), mesh=sp)
+    xs = torch.from_numpy(x_sp).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y1, launches = counted(lambda: run_blocks(sh, xs[:SP_BLOCKS]))
+    wall = time.perf_counter() - t0
+    sh.update(ir_short)
+    y2, launches2 = counted(lambda: run_blocks(sh, xs[SP_BLOCKS:]))
+    out["sp"] = {"y": y1.cpu(), "y_update": y2.cpu(), "launches": [launches, launches2],
+                 "wall_ms_per_block": wall / SP_BLOCKS * 1e3, "seg_count": sh.cfg.seg_count,
+                 "slab_rows": sh.state.segments.shape[0], "active_after": sh.state.active_segs}
+    del sh
+    # the all-reduce of one block's [B+1] partial, on the card and on the host
+    for where, buf in (("card", torch.zeros(BLOCK + 1, dtype=torch.complex64, device=dev)),
+                       ("host", torch.zeros(BLOCK + 1, dtype=torch.complex64))):
+        times = []
+        for _ in range(ALLREDUCE_WARMUP + ALLREDUCE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_reduce(buf, group=sp.get_group("sp"))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e6)
+        out[f"allreduce_us_{where}"] = statistics.median(times[ALLREDUCE_WARMUP:])
+
+    # sp, per period: the sharded two-stage engine over a 60 s IR
+    _, farm_irs = farm_irs_on(dev)
+    ts = ShardedTwoStageConvolver(farm_irs[0], BLOCK, farm_irs.shape[1], mesh=sp)
+    x_ts, x_dp = mesh_inputs(dev, ts.cfg.period)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y_ts, launches = counted(lambda: torch.stack([ts.process(xc.reshape(-1)) for xc in x_ts]))
+    out["ts"] = {"y": y_ts.cpu(), "launches": launches, "tail_segments": ts.cfg.tail.seg_count,
+                 "wall_ms_per_call": (time.perf_counter() - t0) / SP2_CALLS * 1e3}
+    del ts
+
+    # dp: the farm's voices split over the ranks, f32 and bf16 tails
+    dp = make_mesh((world,), ("dp",), "cuda")
+    for dtype, tag in ((torch.float32, "B5"), (torch.bfloat16, "B5p")):
+        f = ReverbFarm(farm_irs, BLOCK, farm_irs.shape[1], mesh=dp, tail_dtype=dtype)
+        own = slice(f.local_voices.start, f.local_voices.stop)
+        xr = x_dp[:, :, own].contiguous()
+        y, launches = counted(lambda: torch.stack([f.process(xc) for xc in xr]))
+        call_ms = event_ms([lambda: f.process(xr[0])] * DP_TIMED)
+        out[tag] = {"y": y.cpu(), "launches": launches, "voices": (own.start, own.stop),
+                    "call_ms": call_ms}
+        del f, xr
+    return out
+
+
+def mesh_phase(dev, ir: np.ndarray, ir_b: np.ndarray, x_host: np.ndarray,
+               farm_irs: torch.Tensor) -> dict:
+    """Phase 17 (module docstring): the parent's references, the two ranks
+    on the card, the gates.  Returns a record."""
+    from fft_convolution_tpu_torch import FFTConvolver, ReverbFarm, TwoStageFFTConvolver
+    from fft_convolution_tpu_torch.parallel.mesh import run_ranks
+
+    record = {}
+    ir_short = ir_b[:SP_UPDATE_SECONDS * SR]
+    x_sp = x_host[:SP_BLOCKS + SP_UPDATE_BLOCKS]
+    xs = torch.from_numpy(x_sp).to(dev)
+    # the single-device engine with max_response_length padded to the mesh
+    # multiple of segments, as the sharded engine pads it (3750 is already one)
+    segs = -(-len(ir) // BLOCK)
+    ref = FFTConvolver(ir, BLOCK, -(-segs // MESH_RANKS) * MESH_RANKS * BLOCK, device=dev)
+    y_ref1 = ref.process(xs[:SP_BLOCKS].reshape(-1)).view(SP_BLOCKS, BLOCK)
+    ref.update(ir_short)
+    y_ref2 = ref.process(xs[SP_BLOCKS:].reshape(-1)).view(SP_UPDATE_BLOCKS, BLOCK)
+    y64 = conv64(xs[:SP_BLOCKS].reshape(-1), torch.from_numpy(ir).to(dev))
+    two = TwoStageFFTConvolver(farm_irs[0], BLOCK, farm_irs.shape[1], device=dev)
+    x_ts, x_dp = mesh_inputs(dev, two.cfg.period)
+    y_ts_ref = torch.stack([two.process(xc.reshape(-1)) for xc in x_ts])
+    y_ts64 = conv64(x_ts.reshape(-1), farm_irs[0])
+    dp_ref = {}
+    for dtype, tag in ((torch.float32, "B5"), (torch.bfloat16, "B5p")):
+        f = ReverbFarm(farm_irs, BLOCK, farm_irs.shape[1], device=dev, tail_dtype=dtype)
+        dp_ref[tag] = torch.stack([f.process(xc) for xc in x_dp])
+        del f
+    del two, ref
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_rank, MESH_RANKS, ir, ir_short, x_sp, device="cuda", timeout=600)
+    print(f"mesh: {MESH_RANKS} ranks, two processes sharing one card (gloo; not a "
+          f"multi-card measurement), in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    sp_err, ts_err, dp_err = 0.0, 0.0, {"B5": 0.0, "B5p": 0.0}
+    for rank, res in enumerate(ranks):
+        sp = res["sp"]
+        if sp["launches"] != [{k: 0 for k in sp["launches"][0]}] * 2:
+            fail(f"rank {rank}: the sp path launched kernels {sp['launches']}")
+        print(f"rank {rank} sp: {sp['seg_count']} segments, {sp['slab_rows']} ring rows on "
+              f"this rank; wall {sp['wall_ms_per_block']!r} ms a block over {SP_BLOCKS} "
+              f"blocks (one all-reduce each); all-reduce of {BLOCK + 1} complex64, median "
+              f"over {ALLREDUCE_REPS}: card tensor {res['allreduce_us_card']!r} us, host "
+              f"tensor {res['allreduce_us_host']!r} us", flush=True)
+        y1, y2 = sp["y"].to(dev), sp["y_update"].to(dev)
+        gate(f"rank {rank} ShardedFFTConvolver vs FFTConvolver ({SP_BLOCKS} blocks)",
+             max_abs(y1, y_ref1), PARITY_TOL)
+        gate(f"rank {rank} ShardedFFTConvolver vs float64 convolution", err64(
+            y1.reshape(-1), y64), PARITY_TOL)
+        gate(f"rank {rank} ShardedFFTConvolver after update to a {SP_UPDATE_SECONDS} s IR "
+             f"(active {sp['active_after']}) vs FFTConvolver ({SP_UPDATE_BLOCKS} blocks)",
+             max_abs(y2, y_ref2), PARITY_TOL)
+        sp_err = max(sp_err, max_abs(y1, y_ref1), max_abs(y2, y_ref2))
+        ts = res["ts"]
+        if ts["launches"] != {k: 0 for k in ts["launches"]}:
+            fail(f"rank {rank}: the sharded two-stage path launched kernels {ts['launches']}")
+        y_ts = ts["y"].to(dev)
+        gate(f"rank {rank} ShardedTwoStageConvolver ({ts['tail_segments']} tail segments, "
+             f"{SP2_CALLS} calls of {SP2_PERIODS} periods) vs TwoStageFFTConvolver",
+             max_abs(y_ts, y_ts_ref), PARITY_TOL)
+        gate(f"rank {rank} ShardedTwoStageConvolver vs float64 convolution",
+             err64(y_ts.reshape(-1), y_ts64), PARITY_TOL)
+        print(f"rank {rank} sharded two-stage: wall {ts['wall_ms_per_call']!r} ms a call "
+              f"({SP2_PERIODS} periods, one all-reduce a period)", flush=True)
+        ts_err = max(ts_err, max_abs(y_ts, y_ts_ref))
+        for tag, tol, scaled in (("B5", 1e-5, False), ("B5p", PACKED_REL_TOL, True)):
+            r = res[tag]
+            lo, hi = r["voices"]
+            print(f"rank {rank} {tag} farm, voices {lo}-{hi - 1} launches: {r['launches']}",
+                  flush=True)
+            if r["launches"] != {k: (DP_CALLS if k == tag else 0) for k in r["launches"]}:
+                fail(f"rank {rank}: {tag} farm launch counts {r['launches']}, not one "
+                     f"{tag} a call")
+            y, want = r["y"].to(dev), dp_ref[tag][:, :, lo:hi]
+            err = max_abs(y, want)
+            bit_equal = bool(torch.equal(y, want))
+            scale = float(want.abs().max())
+            gate(f"rank {rank} {tag} farm slab vs the unsharded farm's voices {lo}-{hi - 1}"
+                 + (" (of the output scale)" if scaled else ""), err / scale if scaled else err,
+                 tol)
+            print(f"rank {rank} {tag} farm slab bit-equal to the unsharded farm: {bit_equal}; "
+                  f"{DP_PERIODS}-period call latency (event ms, {DP_TIMED} calls, the other "
+                  f"rank sharing the card) {r['call_ms']!r}", flush=True)
+            dp_err[tag] = max(dp_err[tag], err)
+        if not all(torch.isfinite(t).all() for t in (y1, y2, y_ts)):
+            fail(f"rank {rank}: non-finite output")
+    record.update(
+        sp={"max_abs_err": sp_err,
+            "wall_ms_per_block": [r["sp"]["wall_ms_per_block"] for r in ranks],
+            "allreduce_us_card": [r["allreduce_us_card"] for r in ranks],
+            "allreduce_us_host": [r["allreduce_us_host"] for r in ranks]},
+        two_stage={"max_abs_err": ts_err,
+                   "wall_ms_per_call": [r["ts"]["wall_ms_per_call"] for r in ranks]},
+        **{tag: {"max_abs_err": dp_err[tag],
+                 "launches_per_rank": [r[tag]["launches"][tag] for r in ranks],
+                 "call_ms_per_rank": [statistics.median(r[tag]["call_ms"]) for r in ranks]}
+           for tag in ("B5", "B5p")})
+    return record
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -778,10 +1010,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    counts = Counts(B1=cuda_engine.block_step, B1p=cuda_engine.block_step_packed,
-                    B2=cuda_two_stage.block_step, B3=cuda_crossfade.block_step,
-                    B4=cuda_stream.stream, B4p=cuda_stream.stream_packed,
-                    B5=cuda_farm_mac.phased_step, B5p=cuda_farm_mac.phased_step_packed)
+    counts = kernel_counts()
     t_run = t_phase = time.perf_counter()
 
     def phase_done(name: str) -> None:
@@ -999,9 +1228,7 @@ def main() -> None:
     phase_done("9 B3/B1p/B4 latency")
 
     # ---- 10. B5: the reverb farm at 128 voices x 60 s, f32 tail ------------
-    gen = torch.Generator(device=dev).manual_seed(5)
-    farm_irs = torch.randn((FARM_VOICES, FARM_SECONDS * SR), generator=gen,
-                           device=dev) * FARM_SCALE
+    gen, farm_irs = farm_irs_on(dev)
     t0 = time.perf_counter()
     farm = ReverbFarm(farm_irs, BLOCK, farm_irs.shape[1], device=dev)
     torch.cuda.synchronize()
@@ -1188,6 +1415,11 @@ def main() -> None:
     print(json.dumps({"host_runtime": host}), flush=True)
     phase_done("16 host runtime")
 
+    # ---- 17. the mesh: two ranks on one card -------------------------------------
+    mesh = mesh_phase(dev, ir, ir_b, x_host, farm_irs)
+    print(json.dumps({"mesh": mesh}), flush=True)
+    phase_done("17 mesh")
+
     def best(label, kind, key="event_ms"):
         return min(r[key] for r in timing[label][kind])
 
@@ -1228,8 +1460,10 @@ def main() -> None:
              "pallas_farm_mac.py:299", b5p_err)):
         kernels.append(row(label, name + f" ({FARM_VOICES} voices x {FARM_SECONDS} s; ms "
                            "per 8-period ReverbFarm.process call; step_ms and the bound "
-                           "for the step alone at T=8)", "b5_farm_tail.cu",
+                           "for the step alone at T=8); also under the dp mesh, per rank "
+                           "(dp_mesh: phase 17)", "b5_farm_tail.cu",
                            replaces, err, timed=f"{label} 8-period"))
+        kernels[-1]["dp_mesh"] = {"ranks": MESH_RANKS, **mesh[label]}
     print(f"total: {time.perf_counter() - t_run:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

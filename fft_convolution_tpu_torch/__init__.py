@@ -21,7 +21,12 @@ Public surface ported so far:
 * :class:`~fft_convolution_tpu_torch.serving.CudaCrossfadeConvolver` — kernel B3
 * :class:`~fft_convolution_tpu_torch.serving.CudaStreamingConvolver` — kernel B4
 * :class:`~fft_convolution_tpu_torch.api_farm.ReverbFarm` — many voices with
-  long IRs on one device, big tail on kernel B5
+  long IRs on one device, big tail on kernel B5; with ``mesh=``, the voices
+  split over the ranks of a ``"dp"`` mesh
+* :class:`~fft_convolution_tpu_torch.parallel.partition.ShardedFFTConvolver`
+  and :class:`~fft_convolution_tpu_torch.parallel.two_stage_sp.
+  ShardedTwoStageConvolver` — one giant IR, its frequency-delay line sharded
+  over the ranks of an ``"sp"`` mesh (:mod:`.parallel.mesh`)
 
 The host side: :mod:`.runtime` (the numpy boundary ``HostEngine``, the
 native ring and block assembler, ``StreamingConvolver`` and the real-time
@@ -39,6 +44,8 @@ _LAZY = {
     "CudaCrossfadeConvolver": "serving",
     "CudaStreamingConvolver": "serving",
     "ReverbFarm": "api_farm",
+    "ShardedFFTConvolver": "parallel.partition",
+    "ShardedTwoStageConvolver": "parallel.two_stage_sp",
 }
 
 __all__ = ["Convolution", "FFTConvolver", *_LAZY]

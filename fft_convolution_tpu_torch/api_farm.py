@@ -13,6 +13,15 @@ is the batched RT-safe IR swap (``update_extension`` semantics, at full
 stage capacity), ``reset`` clears the input state and keeps the IR tables,
 ``snapshot``/``restore``/``clone`` copy the state.  The farm-specific
 constraint: ``process`` takes whole tail periods.
+
+With ``mesh=`` the voices are split over the mesh's ``"dp"`` dimension
+(:mod:`.parallel.mesh`): every rank constructs the farm with all ``V`` IRs
+and keeps the voices of ``local_voices``.  ``process`` takes and returns
+the rank's own ``[T, V/w, B]`` slab, so the audio path has no collective
+and no rank receives another's input.  ``update`` and ``update_voices``
+take the full ``[V, L]`` responses and global voice indices, and a rank
+applies the rows it owns.  ``snapshot``, ``restore`` and ``clone`` act on
+the rank's slab.
 """
 
 from __future__ import annotations
@@ -56,8 +65,10 @@ class ReverbFarm:
         ``"default"``, ``"bf16"``).  Those tiers count a TPU's matrix-unit
         passes; here every transform is a float32 ``torch.fft`` whatever
         the name.
-    mesh : not ported (ROADMAP A11); anything but None raises
-        ``NotImplementedError``.
+    mesh : a :class:`~torch.distributed.device_mesh.DeviceMesh` with a
+        ``"dp"`` dimension whose size divides ``V`` (``parallel.mesh.
+        make_mesh``), or None for one device.  With a mesh, this rank keeps
+        the voices of :attr:`local_voices` (module docstring).
     hbm_budget_bytes : the eager capacity guard of
         :func:`.parallel.farm2.farm2_init`: ``"auto"`` (the CUDA device's
         free memory; no check on the CPU), a byte budget, or None.
@@ -70,8 +81,6 @@ class ReverbFarm:
                  tail_dtype: torch.dtype = torch.float32, tail_mac: str = "auto",
                  tail_dft_precision: str = "auto", dft_precision: str = "auto",
                  mesh=None, hbm_budget_bytes="auto", device=None):
-        if mesh is not None:
-            raise NotImplementedError("ReverbFarm(mesh=...) is not ported yet (ROADMAP A11)")
         if tail_mac != "auto":
             raise ValueError(f"tail_mac must be 'auto' (kernel B5 on a CUDA device, its "
                              f"plain version on the CPU), got {tail_mac!r}")
@@ -81,11 +90,20 @@ class ReverbFarm:
             on_card = isinstance(irs, torch.Tensor) and irs.is_cuda
             device = irs.device if on_card else "cuda"
         irs = torch.as_tensor(irs, dtype=torch.float32, device=device)
+        if mesh is not None and "dp" not in mesh.mesh_dim_names:
+            raise ValueError("farm mesh needs a 'dp' axis")
+        self.mesh = mesh
+        self.voices = irs.shape[0]
+        if mesh is None:
+            self._local = range(self.voices)
+        else:
+            from .parallel.mesh import voice_range  # the mesh layer only with a mesh
+            self._local = voice_range(mesh, self.voices)
+        # voices are independent: a rank builds only its own
         self.cfg, self.state = farm2.farm2_init(
-            irs, block_size, max_response_length, tail_dtype=tail_dtype,
+            irs[self._own], block_size, max_response_length, tail_dtype=tail_dtype,
             hbm_budget_bytes=hbm_budget_bytes)
         self.device = irs.device
-        self.voices = irs.shape[0]
         self.block_size = self.cfg.head_block
         self.max_response_length = max_response_length
         # the phased big tail bounds a call; the short-IR farm takes any length
@@ -100,6 +118,16 @@ class ReverbFarm:
         self._khat_cache: dict[int, tuple[int, torch.Tensor] | dict] = {}
 
     @property
+    def local_voices(self) -> range:
+        """The global indices of the voices this farm keeps: all ``V``
+        without a mesh, this rank's ``V/w`` with one."""
+        return self._local
+
+    @property
+    def _own(self) -> slice:
+        return slice(self._local.start, self._local.stop)
+
+    @property
     def period(self) -> int:
         """Head blocks per tail period: ``process`` length granularity."""
         return self.cfg.period
@@ -110,13 +138,15 @@ class ReverbFarm:
 
     def process(self, blocks) -> torch.Tensor:
         """Stream ``[T, V, block_size] -> [T, V, block_size]``, a tensor on
-        the farm's device.  ``T`` must be a positive multiple of ``period``
-        and at most ``max_blocks_per_call`` where that is not None (split
-        longer streams into consecutive calls)."""
+        the farm's device; with a mesh, ``V`` is this rank's
+        ``len(local_voices)``.  ``T`` must be a positive multiple of
+        ``period`` and at most ``max_blocks_per_call`` where that is not None
+        (split longer streams into consecutive calls)."""
         x = torch.as_tensor(blocks, dtype=torch.float32, device=self.device)
         t = x.shape[0]
-        if x.ndim != 3 or tuple(x.shape[1:]) != (self.voices, self.block_size):
-            raise ValueError(f"expected [T, {self.voices}, {self.block_size}] blocks, "
+        v = len(self._local)
+        if x.ndim != 3 or tuple(x.shape[1:]) != (v, self.block_size):
+            raise ValueError(f"expected [T, {v}, {self.block_size}] blocks, "
                              f"got {tuple(x.shape)}")
         if t == 0 or t % self.period != 0:
             raise ValueError(
@@ -153,7 +183,8 @@ class ReverbFarm:
         input history, zeroes pending tail outputs
         (``TwoStageFFTConvolver.update_extension`` semantics per voice; the
         reference ``update`` is ``todo!()``, ``src/fft_convolver.rs:408``)."""
-        farm2.farm2_update(self.cfg, self.state, self._check_irs(new_irs, self.voices))
+        farm2.farm2_update(self.cfg, self.state,
+                           self._check_irs(new_irs, self.voices)[self._own])
         self._khat_cache.clear()  # built from the old tables
 
     def update_voice(self, voice: int, new_ir) -> None:
@@ -165,7 +196,9 @@ class ReverbFarm:
         (:func:`.parallel.farm2.farm2_update_voices`): only the touched
         voices' tables and pending rows are rewritten and their cached head
         meta-spectra recomputed; the other voices continue bit-identically.
-        All ``V`` voices at once take :meth:`update`."""
+        All ``V`` voices at once take :meth:`update`.  With a mesh,
+        ``voice_idx`` are global indices and this rank applies those of
+        :attr:`local_voices`."""
         idx = np.asarray(voice_idx, np.int64).reshape(-1)
         new_irs = self._check_irs(new_irs, idx.size)
         if idx.size == 0:
@@ -179,6 +212,10 @@ class ReverbFarm:
             full[torch.from_numpy(idx).to(self.device)] = new_irs
             self.update(full)
             return
+        own = (idx >= self._local.start) & (idx < self._local.stop)
+        if not own.any():
+            return
+        idx, new_irs = idx[own] - self._local.start, new_irs[torch.from_numpy(own).to(self.device)]
         farm2.farm2_update_voices(self.cfg, self.state, idx, new_irs)
         if self.cfg.tail is None:
             self._khat_cache.clear()  # rebuilt whole at the next call

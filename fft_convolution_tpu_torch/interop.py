@@ -4,8 +4,9 @@ Turns the JAX package's engine and kernel states — ``UniformState``,
 ``TwoStageState``, ``CrossfaderState``, and the Pallas kernels'
 ``PallasFDLState`` / ``PallasFDLConsts`` (and their packed forms),
 ``FusedHeadState`` / ``FusedHeadConsts``, ``XfadeState`` / ``XfadeConsts``,
-``StreamState`` / ``StreamConsts`` / ``StreamConstsPacked``, and the reverb
-farm's ``parallel.farm2`` state — into this
+``StreamState`` / ``StreamConsts`` / ``StreamConstsPacked``, the reverb
+farm's ``parallel.farm2`` state and the
+segment-sharded ``ShardedFDLState`` (one rank's part) — into this
 package's states on a given device, so both packages can run on from the
 same mid-stream state.  Fields are read through ``numpy.asarray``, so any
 object with those attribute names works; JAX itself is not imported.
@@ -29,6 +30,7 @@ from .ops.cuda_stream import StreamConsts, StreamState
 from .ops.cuda_two_stage import FusedConsts, FusedState
 from .ops.fft import packed_to_complex, twiddles
 from .parallel.farm2 import Farm2State, TailState
+from .parallel.partition import ShardedFDLState
 
 
 def _f32(a, device) -> torch.Tensor:
@@ -164,7 +166,8 @@ def farm_state(jcfg, jstate, device="cpu") -> Farm2State:
     and tail0 stages as they are; the planes-outer fused tail ring and the
     first ``N`` rows of the doubled table as ``[N, V, B+1]`` bins (packed
     words as exact bf16 pairs); the head history from the two period-buffer
-    planes it is kept in there; ``precalc_pos == 1`` as the suppress flags."""
+    planes it is kept in there; ``precalc_pos == 1`` as the suppress flags.
+    A rank's slab of it is :func:`~.parallel.farm2.voice_slab`."""
     tail = jstate.tail
     v, b, p = np.asarray(jstate.tail_output).shape[0], jcfg.head_block, jcfg.period
     n, n_t = jcfg.head.seg_count, jcfg.tail.seg_count
@@ -181,6 +184,21 @@ def farm_state(jcfg, jstate, device="cpu") -> Farm2State:
         tail_output=_f32(jstate.tail_output, device),
         tail_precalc=_f32(jstate.tail_precalc, device),
         suppress=torch.from_numpy(np.asarray(jstate.precalc_pos) == 1),
+    )
+
+
+def sharded_fdl(jcfg, jstate, rank: int, sp: int, device="cpu") -> ShardedFDLState:
+    """Rank ``rank``'s part, of ``sp`` along ``"sp"``, of a JAX
+    ``parallel.partition.ShardedFDLState`` (global arrays): its rows of the
+    ring, one copy of the doubled IR table, the replicated overlap and
+    scalars."""
+    rows = jcfg.seg_count // sp
+    seg = np.asarray(jstate.segments)[rank * rows:(rank + 1) * rows]
+    return ShardedFDLState(
+        segments=_spectra(seg, device),
+        segments_ir=_spectra(np.asarray(jstate.segments_ir)[:jcfg.seg_count], device),
+        overlap=_f32(jstate.overlap, device),
+        current=_int(jstate.current), active_segs=_int(jstate.active_segs),
     )
 
 

@@ -22,7 +22,7 @@ big-tail history are not ported: they change no output.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -127,21 +127,22 @@ def init(response, block_size: int, max_response_length: int,
 
 
 def update(cfg: TwoStageConfig, state: TwoStageState, response_padded: torch.Tensor,
-           new_len: int) -> None:
+           new_len: int, tail_update: Callable = uniform.update) -> None:
     """EXTENSION — the reference leaves ``update`` as ``todo!()``
     (``src/fft_convolver.rs:408-410``).  Each stage re-derives its IR slice
     as at init and takes the uniform engine's RT-safe swap; input history
     and the period schedule are kept, and the precalculated tail buffers
     are zeroed.  ``response_padded`` is zero-padded to the init
-    ``max_response_length``."""
+    ``max_response_length``.  ``tail_update`` swaps the big tail's IR (the
+    sharded tail's is :func:`..parallel.partition.update`)."""
     tb = cfg.tail_block
     stages = ((cfg.head, state.head, 0), (cfg.tail0, state.tail0, tb),
               (cfg.tail, state.tail, 2 * tb))
-    for scfg, sstate, lo in stages:
+    for (scfg, sstate, lo), stage_update in zip(stages, (uniform.update,) * 2 + (tail_update,)):
         if scfg is None:
             continue
         cap = scfg.ir_len
-        uniform.update(
+        stage_update(
             scfg, sstate,
             copy_and_pad(response_padded[lo:lo + cap], scfg.seg_count * scfg.block_size),
             min(max(new_len - lo, 0), cap),
@@ -150,11 +151,15 @@ def update(cfg: TwoStageConfig, state: TwoStageState, response_padded: torch.Ten
         getattr(state, k).zero_()
 
 
-def reset(cfg: TwoStageConfig, state: TwoStageState) -> None:
-    """``Convolution::reset`` (``src/fft_convolver.rs:497-511``)."""
+def reset(cfg: TwoStageConfig, state: TwoStageState,
+          tail_reset: Callable = uniform.reset) -> None:
+    """``Convolution::reset`` (``src/fft_convolver.rs:497-511``).
+    ``tail_reset`` clears the big tail (the sharded tail's is
+    :func:`..parallel.partition.reset`)."""
     del cfg
-    for s in (state.head, state.tail0, state.tail):
-        uniform.reset(s)
+    uniform.reset(state.head)
+    uniform.reset(state.tail0)
+    tail_reset(state.tail)
     for k in _BUFFERS:
         getattr(state, k).zero_()
     state.tail_fill = 0
@@ -256,7 +261,8 @@ def stream_khats(cfg: TwoStageConfig, state: TwoStageState, t: int) -> dict:
 
 
 def process_stream_aligned(cfg: TwoStageConfig, state: TwoStageState,
-                           blocks: torch.Tensor, khats: dict | None = None) -> torch.Tensor:
+                           blocks: torch.Tensor, khats: dict | None = None,
+                           big_stream: Callable | None = None) -> torch.Tensor:
     """Period-aligned batched streaming (``process_stream_aligned``,
     ``fft_convolution_tpu/models/two_stage.py:726``, its separate-streams
     form): ``blocks [..., T, B] -> y [..., T, B]`` with ``T`` a multiple of
@@ -273,7 +279,11 @@ def process_stream_aligned(cfg: TwoStageConfig, state: TwoStageState,
     block over period-sized superblocks, each through
     :func:`.uniform.process_stream` with its ``khats`` entry.  The exit
     state holds the sequential schedule's buffers exactly, so the aligned
-    and block paths interleave freely."""
+    and block paths interleave freely.
+
+    ``big_stream(tail_cfg, tail_state, rows [q, tail_block]) -> [q,
+    tail_block]`` replaces the big tail's stream (the sharded tail of
+    :mod:`..parallel.two_stage_sp`)."""
     b, tb, p = cfg.head_block, cfg.tail_block, cfg.period
     t = blocks.shape[-2]
     q = t // p
@@ -291,8 +301,9 @@ def process_stream_aligned(cfg: TwoStageConfig, state: TwoStageState,
         output0 = out0[..., -2, :].clone() if q >= 2 else state.tail_precalc0
         state.tail_precalc0, state.tail_output0 = out0[..., -1, :].clone(), output0
     if cfg.tail is not None:
-        out_t = uniform.process_stream(cfg.tail, state.tail,
-                                       blocks.reshape(*lead, q, tb), kh.get("tail"))
+        rows = blocks.reshape(*lead, q, tb)
+        out_t = (uniform.process_stream(cfg.tail, state.tail, rows, kh.get("tail"))
+                 if big_stream is None else big_stream(cfg.tail, state.tail, rows))
         yq[..., 0, :] += state.tail_precalc
         if q >= 2:
             yq[..., 1, :] += state.tail_output

@@ -10,12 +10,17 @@ int for all voices.  :mod:`.farm2` builds its head and tail0 stages here.
 
 :func:`farm_stream` runs the voices' clean lockstep rings through the
 uniform engine's conv core over the voice axis (the JAX package's
-``uniform.stream_conv_farm``); the mesh placement is not ported (ROADMAP
-A11).
+``uniform.stream_conv_farm``).
+
+Across ranks: the voice axis is split over the mesh's ``"dp"`` dimension.
+Each rank keeps :func:`voice_slab` of its ``mesh.voice_range`` (the JAX
+package's ``shard_farm``) and streams it through :func:`farm_stream`
+(``sharded_farm_stream``); the audio path has no collective.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import torch
 
 from ..models import uniform
@@ -130,3 +135,13 @@ def farm_stream(cfg: uniform.UniformConfig, state: uniform.UniformState,
         return uniform.stream_conv(cfg, state, blocks.transpose(0, 1),
                                    kern_hat).transpose(0, 1).contiguous()
     return torch.stack([farm_step(cfg, state, xt) for xt in blocks])
+
+
+def voice_slab(state: uniform.UniformState, voices: range) -> uniform.UniformState:
+    """A copy of ``voices`` of a voice-stacked stage; the lockstep scalars
+    as they are."""
+    sl = slice(voices.start, voices.stop)
+    return dataclasses.replace(
+        state, **{f.name: getattr(state, f.name)[sl].clone()
+                  for f in dataclasses.fields(state)
+                  if isinstance(getattr(state, f.name), torch.Tensor)})

@@ -34,8 +34,15 @@ The short-IR farm (``max_response_length <= 2 x tail block``, no big tail:
 small stage on the uniform conv core (``farm2_stream``'s ``cfg.tail is
 None`` branch, ``fft_convolution_tpu/parallel/farm2.py:1071-1079``).
 
-Not ported: the mesh forms (``farm2_pspecs``, ``farm2_shard``,
-``farm2_stream_sharded``; ROADMAP A11).
+Across ranks: the voice axis is split over the mesh's ``"dp"`` dimension.
+A rank's slab, :func:`voice_slab` of its ``mesh.voice_range`` (the JAX
+package's ``farm2_shard``), holds the head-side stages, the big tail's
+fused ``[N, V/w, tb+1]`` ring and table and the period buffers of its
+voices; the lockstep scalars (``q``, ``current``) are the same on every
+rank.  Each rank streams its slab through :func:`farm2_stream`
+(``farm2_stream_sharded``; kernel B5 on ``V/w`` voices for a farm on the
+card, the aligned path for a short-IR farm); the audio path has no
+collective.
 """
 
 from __future__ import annotations
@@ -457,3 +464,28 @@ def farm2_stream(cfg: TwoStageConfig, state: Farm2State | TwoStageState,
     state.tail_output = out_t[-1].clone()
     state.suppress.fill_(False)
     return y.transpose(0, 1).contiguous()
+
+
+def voice_slab(state: Farm2State | TwoStageState, voices: range) -> Farm2State | TwoStageState:
+    """A copy of ``voices`` of a farm2 state: the voice-stacked stages, the
+    big tail's columns of ``voices`` and the voices' period buffers; the
+    lockstep scalars as they are.  A short-IR farm's absent stages (not
+    voice-stacked) are shared as they are."""
+    sl = slice(voices.start, voices.stop)
+
+    def cut(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return t[(slice(None),) * dim + (sl,)].clone(memory_format=torch.contiguous_format)
+
+    if isinstance(state, TwoStageState):
+        def stage(st):  # stacked stages have a voice axis before [N, B+1]
+            return farm.voice_slab(st, voices) if st.segments.ndim == 3 else st
+
+        return dataclasses.replace(state, head=stage(state.head), tail0=stage(state.tail0),
+                                   **{k: cut(getattr(state, k)) for k in two_stage._BUFFERS})
+    t = state.tail
+    return Farm2State(
+        head=farm.voice_slab(state.head, voices), tail0=farm.voice_slab(state.tail0, voices),
+        tail=TailState(ring=cut(t.ring, 1), table=cut(t.table, 1), overlap=cut(t.overlap),
+                       pre=cut(t.pre), q=t.q),
+        hist=cut(state.hist), tail_output=cut(state.tail_output),
+        tail_precalc=cut(state.tail_precalc), suppress=cut(state.suppress))

@@ -1,6 +1,6 @@
 """Kernels B1, B1p, B2, B3, B4 and B5 on the card against their plain
 PyTorch versions; B1-B3 also for their arrival counters (one launch a
-step).
+step); the mesh forms on two gloo ranks sharing the card.
 
 These need an NVIDIA card with nvcc (``sm_90a``) and skip elsewhere.  The
 repository's ``tests/conftest.py`` imports JAX; where JAX is not installed,
@@ -494,3 +494,72 @@ def test_reverb_farm_on_card_matches_cpu(dev, tail_dtype):
         tol = 2e-5 if tail_dtype == torch.float32 else 5e-3
         assert float((got - want).abs().max()) <= tol * scale, f"call {call}"
     assert launches.launches == before + 4
+
+
+# ---- the mesh: two gloo ranks sharing the card (parallel.mesh.run_ranks) -----------
+# A spawned rank imports this module (torch only) to reach its function.
+
+def _dp_farm_rank(rank, world, irs, x, bf16):
+    from fft_convolution_tpu_torch.parallel.mesh import make_mesh
+
+    farm = ReverbFarm(irs, 64, irs.shape[1], mesh=make_mesh((world,), ("dp",), "cuda"),
+                      tail_dtype=torch.bfloat16 if bf16 else torch.float32)
+    step = cuda_farm_mac.phased_step_packed if bf16 else cuda_farm_mac.phased_step
+    before = step.launches
+    own = slice(farm.local_voices.start, farm.local_voices.stop)
+    ys = [farm.process(xc[:, own]).cpu() for xc in x]
+    return {"y": torch.cat(ys), "voices": (own.start, own.stop),
+            "launches": step.launches - before}
+
+
+@pytest.mark.parametrize("tail_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dp_farm_two_ranks_match_unsharded(dev, tail_dtype):
+    """ReverbFarm(mesh=...) on two ranks of the card: each rank's voice slab
+    against the unsharded farm's rows, and kernel B5 (B5p) launched once a
+    call on each rank."""
+    from fft_convolution_tpu_torch.parallel.mesh import run_ranks
+
+    rng = np.random.default_rng(160)
+    irs = (rng.standard_normal((4, 9000)) * 0.05).astype(np.float32)
+    ref = ReverbFarm(irs, 64, 9000, tail_dtype=tail_dtype, device=dev)
+    x = [rng.standard_normal((periods * ref.period, 4, 64)).astype(np.float32)
+         for periods in (2, 1, 4)]
+    want = torch.cat([ref.process(xc).cpu() for xc in x])
+    ranks = run_ranks(_dp_farm_rank, 2, irs, x, tail_dtype == torch.bfloat16,
+                      device="cuda", timeout=300)
+    for rank, res in enumerate(ranks):
+        lo, hi = res["voices"]
+        assert (lo, hi) == (2 * rank, 2 * rank + 2)
+        assert res["launches"] == len(x)
+        _close(res["y"], want[:, lo:hi], f"rank {rank}")
+
+
+def _sp_rank(rank, world, ir, short, x):
+    from fft_convolution_tpu_torch.parallel.mesh import make_mesh
+    from fft_convolution_tpu_torch.parallel.partition import ShardedFFTConvolver
+
+    sh = ShardedFFTConvolver(ir, 128, len(ir), mesh=make_mesh((world,), ("sp",), "cuda"))
+    y1 = sh.process(x[:40].reshape(-1))
+    sh.update(short)
+    return {"y": torch.cat([y1, sh.process(x[40:].reshape(-1))]).cpu(),
+            "rows": sh.state.segments.shape[0]}
+
+
+def test_sharded_fdl_two_ranks_match_fft_convolver(dev):
+    """ShardedFFTConvolver on two ranks of the card (one all-reduce of a
+    card tensor a block) against FFTConvolver, through the ring's wrap and
+    an update to a shorter IR (the shrunk-ring transient)."""
+    from fft_convolution_tpu_torch import FFTConvolver
+    from fft_convolution_tpu_torch.parallel.mesh import run_ranks
+
+    rng = np.random.default_rng(161)
+    ir = (rng.standard_normal(128 * 24) * 0.1).astype(np.float32)
+    short = (rng.standard_normal(128 * 5) * 0.1).astype(np.float32)
+    x = rng.standard_normal((72, 128)).astype(np.float32)
+    ref = FFTConvolver(ir, 128, len(ir), device=dev)
+    y1 = ref.process(x[:40].reshape(-1))
+    ref.update(short)
+    want = torch.cat([y1, ref.process(x[40:].reshape(-1))]).cpu()
+    for res in run_ranks(_sp_rank, 2, ir, short, x, device="cuda", timeout=300):
+        assert res["rows"] == 12
+        _close(res["y"], want, "sharded vs single-device")

@@ -4,9 +4,10 @@ uniform stages, ``farm2`` and ``ReverbFarm``, held against the JAX package
 (its Pallas kernel in interpret mode and its jnp core) on the same
 numpy-seeded inputs, from init and from states carried by ``interop``.
 Sizes are the JAX farm tests': block 64 and 9000-sample IRs, so tail block
-1024, period 16 and 8 tail segments.  Ports ``tests/test_api_farm.py``
-except its mesh tests and its short-IR test, which are not ported (ROADMAP
-A11 and A7) and assert ``NotImplementedError`` instead."""
+1024, period 16 and 8 tail segments.  Ports ``tests/test_api_farm.py``,
+its three mesh tests on a ``"dp"`` mesh of 2 gloo ranks (one spawn for the
+three, the rank bodies in ``tests/torch_ranks.py``, which imports no JAX):
+each rank's voice slab against the JAX farm's rows."""
 
 import functools
 
@@ -16,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_ranks
 from fft_convolution_tpu import ReverbFarm as JaxReverbFarm
 from fft_convolution_tpu.models import uniform as juni
 from fft_convolution_tpu.ops import fft as jfft
@@ -30,6 +32,7 @@ from fft_convolution_tpu_torch.ops import cuda_farm_mac
 from fft_convolution_tpu_torch.ops import fft as tfft
 from fft_convolution_tpu_torch.ops.fft import packed_to_complex
 from fft_convolution_tpu_torch.parallel import farm, farm2
+from fft_convolution_tpu_torch.parallel.mesh import run_ranks
 
 V, B, IR_LEN = 3, 64, 9000
 # The JAX farm's own stream tolerance (tests/test_parallel.py:215-249):
@@ -531,13 +534,80 @@ def test_reverb_farm_per_call_ceiling():
     assert y.shape == x.shape
 
 
-@pytest.mark.parametrize("case", ["mesh_pallas_shard_map", "on_mesh", "update_voice_on_mesh"])
-def test_reverb_farm_mesh_not_ported(case):
-    """The three mesh tests of the JAX package: a mesh is ROADMAP A11."""
-    rng = np.random.default_rng(43)
-    irs = _irs(rng, 4)
-    with pytest.raises(NotImplementedError, match="A11"):
-        ReverbFarm(irs, B, IR_LEN, mesh=case, device="cpu")
+# ---- ReverbFarm(mesh=...): the voices split over a "dp" mesh of MESH_RANKS ranks -----
+
+MESH_RANKS = 2
+
+
+def _mesh_inputs():
+    """Per test: (irs, ops for ``torch_ranks.reverb_farm``), the JAX tests'
+    seeds with the voice counts scaled from their 8 devices to the ranks."""
+    w = MESH_RANKS
+    period = 16
+    rng = np.random.default_rng(43)     # :125, V = mesh size
+    irs = _irs(rng, w)
+    pallas = (irs, [("raises_new", irs[:w - 1])]
+              + [("process", rng.standard_normal((period, w, B)).astype(np.float32))
+                 for _ in range(2)])
+    rng = np.random.default_rng(34)     # :148, V = 2 x mesh size
+    irs = _irs(rng, 2 * w)
+    on_mesh = (irs, [("process", rng.standard_normal((period, 2 * w, B)).astype(np.float32))])
+    rng = np.random.default_rng(51)     # :335, V = mesh size
+    irs = _irs(rng, w)
+    x = rng.standard_normal((4 * period, w, B)).astype(np.float32)
+    new_ir = rng.standard_normal(6000).astype(np.float32) * 0.05
+    update = (irs, [("process", x[:2 * period]), ("update_voice", 1, new_ir),
+                    ("process", x[2 * period:])])
+    return {"mesh_pallas_shard_map": pallas, "on_mesh": on_mesh, "update_voice_on_mesh": update}
+
+
+@pytest.fixture(scope="module")
+def mesh_farms():
+    """Every rank's results of the three mesh tests' jobs, one spawn."""
+    jobs = {name: ("reverb_farm", dict(irs=irs, b=B, cap=IR_LEN, ops=ops))
+            for name, (irs, ops) in _mesh_inputs().items()}
+    return run_ranks(torch_ranks.run_jobs, MESH_RANKS, jobs, device="cpu", timeout=300)
+
+
+def _mesh_farm_matches_jax(results, name):
+    """Each rank's slabs against the unsharded JAX farm (jnp core) on the
+    same ops, and its voices the rank's own ``local_voices``."""
+    irs, ops = _mesh_inputs()[name]
+    ref = JaxReverbFarm(irs, B, IR_LEN, tail_mac="jnp")
+    want = []
+    for op, *args in ops:
+        if op == "process":
+            want.append(np.asarray(ref.process(args[0])))
+        elif op != "raises_new":
+            getattr(ref, op)(*args)
+    per_rank = irs.shape[0] // MESH_RANKS
+    for rank, res in enumerate(results):
+        got = res[name]
+        lo, hi = got["voices"]
+        assert (lo, hi) == (rank * per_rank, (rank + 1) * per_rank)
+        for call, (y, w) in enumerate(zip(got["y"], want)):
+            _close(y, w[:, lo:hi], ATOL, f"rank {rank}, call {call}")
+    return results
+
+
+def test_reverb_farm_mesh_pallas_shard_map(mesh_farms):
+    """:125 — each rank steps kernel B5 (its plain version here) on its own
+    voices and matches the single-device jnp farm; a voice count that does
+    not divide by the mesh raises."""
+    for res in _mesh_farm_matches_jax(mesh_farms, "mesh_pallas_shard_map"):
+        (msg,) = res["mesh_pallas_shard_map"]["raised"]
+        assert msg is not None and "divide" in msg
+
+
+def test_reverb_farm_on_mesh(mesh_farms):
+    """:148 — two voices a rank."""
+    _mesh_farm_matches_jax(mesh_farms, "on_mesh")
+
+
+def test_reverb_farm_update_voice_on_mesh(mesh_farms):
+    """:335 — a per-voice update by global index on the sharded farm: only
+    its owner applies it, and every rank matches the single-device farm."""
+    _mesh_farm_matches_jax(mesh_farms, "update_voice_on_mesh")
 
 
 def test_reverb_farm_varying_call_lengths():
