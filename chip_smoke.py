@@ -66,32 +66,43 @@ after; the flagship shape is block 128 and a 10 s 48 kHz IR.
 15. the batched streams (``torch.fft`` on the card; no hand-written kernel
     lies on them, so every launch counter must stay 0) at the JAX package's
     benchmark shapes, uncut: the flagship ``TwoStageFFTConvolver`` (block
-    128, 10 s IR, T = 3968), config 1 (``FFTConvolver``, 1 s IR, T = 1674),
-    config 2 (the uniform farm, 2 voices, block 256, 5 s IRs, T = 1111),
-    config 3 (``TwoStageFFTConvolver``, 30 s IR, T = 32 periods = 4096),
-    config 4 (the crossfade morph on two 1 s IRs mid-fade, T = 650) and a
-    short-IR ``ReverbFarm`` (128 voices of 512-tap IRs, T = 2046).  Each
-    shape: two aligned calls, gated to the conv core's expected call count
-    (``models.uniform._stream_conv.calls``), held to 1e-4 against a float64
+    128, 10 s IR, T = 3968; and the same engine at two periods, T = 128),
+    config 1 (``FFTConvolver``, 1 s IR, T = 1674), config 2 (the uniform
+    farm, 2 voices, block 256, 5 s IRs, T = 1111), config 3
+    (``TwoStageFFTConvolver``, 30 s IR, T = 32 periods = 4096), config 4
+    (the crossfade morph on two 1 s IRs mid-fade, T = 650) and a short-IR
+    ``ReverbFarm`` (128 voices of 512-tap IRs, T = 2046).  Each shape:
+    aligned calls with the state carried (five at the flagship, whose CHRONO
+    history compacts on the fourth, gated; two elsewhere), gated to each
+    stream core's expected call count (:func:`core_calls`: the ring's conv
+    core, the fused head+tail0 front end, the CHRONO big tail; a two-stage
+    call runs the last two once each), held to 1e-4 against a float64
     ``torch.fft`` convolution on the card and against the same engine's
     block loop; xRT (audio seconds over the median CUDA-event seconds of a
     warm call, meta-spectra cached) of the batched call and of the block
     loop (timed over at most 640 blocks and scaled); the CUDA kernels and
-    device microseconds of one call (``torch.profiler``).  Then, printed
-    only: the conv core at B4's shape (30 s IR, T = 64) beside B4's device
-    time from phase 14, and cuFFT along dim -2 against the same rows laid
-    out along dim -1.  A ``{"batched_streams": ...}`` line records it all;
+    device microseconds of one call (``torch.profiler``).  At each two-stage
+    shape, printed only: the same call in each form of
+    :data:`TWO_STAGE_FORMS` (fused front end and CHRONO tail on or off, and
+    the fused side passes in the form ``fused_uses_multi`` does not pick),
+    event ms, device microseconds and CUDA kernels each, from one state and
+    input in one run.  Then, printed only: the conv core at B4's shape (30 s
+    IR, T = 64) beside B4's device time from phase 14, and cuFFT along dim
+    -2 against the same rows laid out along dim -1.  A ``{"batched_streams":
+    ...}`` line records it all;
 16. the host runtime (``runtime/``, ``utils/``, ``examples/``): the native
     library built with g++; ``HostEngine`` (numpy blocks in and out) over
     B1, B2 and B3 for 512 blocks against the same wrapper fed card tensors
     (1e-6, and whether bit-equal); the host-callback latency of B1, B1p, B2
     and B3 over 2000 warm numpy blocks, the copies and the sync included
     (median gated below the 2.667 ms block; p99 and max printed) beside the
-    card-tensor latency of phases 5 and 9; ``StreamingConvolver`` over the
+    card-tensor latency of phases 5 and 9, B2's split into the blocks that
+    end a period (the big tail runs there) and the others, with the big-tail
+    step's CUDA-event time alone; ``StreamingConvolver`` over the
     flagship ``TwoStageFFTConvolver`` fed 441-sample pushes, then a push
     back to the block boundary and a block-aligned push of three periods
-    (the batched route: the conv core must run), against a float64
-    convolution (1e-4); ``RealTimeDispatcher`` over B3 fed 441-sample
+    (the batched route: the fused front end and the CHRONO tail must run
+    once each), against a float64 convolution (1e-4); ``RealTimeDispatcher`` over B3 fed 441-sample
     pushes for 4000 blocks by the lockstep callback of ``serve_morph.serve``
     (it waits on the dispatcher, so it cannot underrun: its wall time is
     throughput) with a morph posted through ``RealTimeDispatcher.update`` a
@@ -181,6 +192,16 @@ CONFIG3_SHAPES = (16384, 128, 128, 86)
 CONFIG_SEGS_T = {1: (375, 1674), 2: (938, 1111), 4: (375, 650)}  # segments, T
 SHORT_FARM = (128, 512, 2046)     # voices, IR taps (tail block 256: no big tail), T
 BATCHED_CALLS = 2                 # parity calls a shape, state carried
+FLAGSHIP_CALLS = 5                # the flagship's CHRONO history (256 rows) compacts on
+FLAGSHIP_ROWS = [118, 180, 242, 118, 180]  # the 4th call: its rows after each call
+SHORT_PERIODS = 2                 # the flagship engine at two periods a call, T = 128
+# the aligned two-stage forms timed at each two-stage shape: (fused front end,
+# CHRONO tail, the fused side passes in the form fused_uses_multi does not pick)
+TWO_STAGE_FORMS = {"fused + CHRONO": (True, True, False),
+                   "fused + CHRONO, other side-pass form": (True, True, True),
+                   "fused alone, ring tail": (True, False, False),
+                   "CHRONO alone, separate small streams": (False, True, False),
+                   "separate small streams, ring tail": (False, False, False)}
 BATCHED_WARMUP, BATCHED_TIMED, BATCHED_PROFILED = 2, 8, 3
 LOOP_BLOCKS, LOOP_RUNS = 640, 3   # the block loop's timing window (10 flagship periods)
 YARD_WARMUP, YARD_TIMED = 4, 20   # conv-core calls at B4's shape
@@ -192,6 +213,7 @@ PUSH, HOST_STREAM_PUSHES = 441, 200               # 441-sample host buffers
 DISPATCH_BLOCKS, PACED_BLOCKS = 4000, 1000
 STREAM_ALIGNED_PERIODS = 3        # the block-aligned push, in the flagship's periods
 CKPT_BLOCKS, CKPT_CONTINUE = 100, 64
+TAIL_STEP_REPS = 20               # B2's big-tail step alone, timed
 EXAMPLE_VOICES, EXAMPLE_IR_SECONDS = 8, 4
 # phase 17: the mesh, two ranks on one card
 MESH_RANKS = 2
@@ -266,6 +288,19 @@ def kernel_counts() -> Counts:
                   B2=cuda_two_stage.block_step, B3=cuda_crossfade.block_step,
                   B4=cuda_stream.stream, B4p=cuda_stream.stream_packed,
                   B5=cuda_farm_mac.phased_step, B5p=cuda_farm_mac.phased_step_packed)
+
+
+def core_calls(since: tuple | None = None) -> tuple:
+    """The calls so far of the batched stream cores: the ring's conv core
+    (``models.uniform._stream_conv``), the fused head+tail0 front end
+    (``models.two_stage._fused_small_streams``) and the CHRONO big tail
+    (``models.uniform.stream_conv_chrono``); given an earlier reading, the
+    calls since it."""
+    from fft_convolution_tpu_torch.models import two_stage, uniform
+
+    now = (uniform._stream_conv.calls, two_stage._fused_small_streams.calls,
+           uniform.stream_conv_chrono.calls)
+    return now if since is None else tuple(a - b for a, b in zip(now, since))
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -395,11 +430,10 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
     Returns a record a shape."""
     from fft_convolution_tpu_torch import (CrossfadeConvolver, FFTConvolver, ReverbFarm,
                                            TwoStageFFTConvolver)
-    from fft_convolution_tpu_torch.models import crossfade, uniform
+    from fft_convolution_tpu_torch.models import crossfade, two_stage, uniform
     from fft_convolution_tpu_torch.ops.fft import next_power_of_two
     from fft_convolution_tpu_torch.parallel import farm
 
-    core = uniform._stream_conv
     record = {}
 
     def randn(rng, shape):
@@ -408,25 +442,25 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
     def drive(name, x, batched, sequential, reference, per_call, audio_s, thunks,
               pick=lambda y: y):
         """``x [calls, T, ...]``: the calls through ``batched`` (``per_call``
-        conv-core calls each, no hand-written kernel) and through
-        ``sequential`` on a twin (no conv-core call), both held against
-        ``reference(x)``, a float64 convolution (``pick`` selects the part of
-        the output ``sequential`` computes).  Then the xRT of a warm call
-        (``thunks(k)``: k warm calls, in turn) and of the block loop, and one
-        call's profile."""
+        calls of each stream core a call, :func:`core_calls`; no hand-written
+        kernel) and through ``sequential`` on a twin (no stream core), both
+        held against ``reference(x)``, a float64 convolution (``pick``
+        selects the part of the output ``sequential`` computes).  Then the
+        xRT of a warm call (``thunks(k)``: k warm calls, in turn) and of the
+        block loop, and one call's profile."""
         calls, t = x.shape[:2]
-        n0 = core.calls
+        n0 = core_calls()
         y = counts.drive(f"{name} batched", lambda: torch.stack([batched(xc) for xc in x]),
                          {})
-        took = core.calls - n0
-        print(f"{name}: {calls} aligned calls of T={t} blocks; the conv core ran {took} "
-              "times", flush=True)
-        if took != per_call * calls:
-            fail(f"{name}: the conv core ran {took} times, not {per_call} a call")
-        n0 = core.calls
+        took = core_calls(n0)
+        print(f"{name}: {calls} aligned calls of T={t} blocks; the ring conv core, the "
+              f"fused front end and the CHRONO tail ran {took} times", flush=True)
+        if took != tuple(k * calls for k in per_call):
+            fail(f"{name}: the stream cores ran {took} times, not {per_call} a call")
+        n0 = core_calls()
         y_seq = torch.stack([sequential(xc) for xc in x])
-        if core.calls != n0:
-            fail(f"{name}: the block loop reached the conv core")
+        if core_calls(n0) != (0, 0, 0):
+            fail(f"{name}: the block loop reached a stream core")
         if not torch.isfinite(y).all():
             fail(f"{name}: non-finite output")
         scale = float(y.abs().max())
@@ -442,7 +476,7 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
         loop_ms = statistics.median(event_ms([lambda: sequential(x[0, :k])] * LOOP_RUNS)) * t / k
         prof = profile_steps(lambda i: th[BATCHED_WARMUP + BATCHED_TIMED + i](),
                              BATCHED_PROFILED, 0)
-        rec = {"T": t, "audio_s": audio_s, "conv_core_calls": per_call, "scale": scale,
+        rec = {"T": t, "audio_s": audio_s, "stream_core_calls": per_call, "scale": scale,
                "err_f64": e64, "err_loop": e_loop, "ms": ms, "xrt": audio_s / (ms / 1e3),
                "loop_ms": loop_ms, "xrt_loop": audio_s / (loop_ms / 1e3),
                "device_us": prof["device_us"],
@@ -453,8 +487,43 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
               f"block loop {loop_ms!r} ms a call ({k} blocks timed) -> xRT "
               f"{rec['xrt_loop']!r}; one call {prof['device_us']!r} device us in "
               f"{prof['cuda_launches_per_step']!r} CUDA kernels", flush=True)
+        return rec
 
-    def two_stage_shape(name, seed, seconds, scale, periods, want):
+    def aligned_form(eng, x0, fuse, chrono, multi):
+        """A thunk: aligned calls on ``x0 [T, B]`` from a copy of ``eng``'s
+        state through ``process_stream_aligned`` with the fused front end on
+        or off, the big tail on its CHRONO history (compacted as the wrapper
+        does) or on its ring, and the fused side passes in the MULTI form,
+        the SEPARATE one, or (None) as ``fused_uses_multi`` routes."""
+        cfg, st, t = eng.cfg, eng.state.clone(), x0.shape[0]
+        q, keep = t // cfg.period, two_stage.FUSED_MULTI_MAX_ROWS
+        rows = keep if multi is None else (1 << 30 if multi else 0)
+        two_stage.FUSED_MULTI_MAX_ROWS = rows
+        khats = two_stage.stream_khats(cfg, st, t, want_tail=True if chrono else None)
+        two_stage.FUSED_MULTI_MAX_ROWS = keep
+        tail = list(two_stage.tail_to_chrono(cfg, st, eng._chrono_h_cap)) if chrono else None
+
+        def call():
+            two_stage.FUSED_MULTI_MAX_ROWS = rows
+            if chrono and not uniform.chrono_fits(cfg.tail, tail[0].shape[0], tail[1], q):
+                tail[1] = two_stage.tail_chrono_compact(cfg, tail)
+            y = two_stage.process_stream_aligned(cfg, st, x0, khats, fuse_small=fuse,
+                                                 tail_chrono=tuple(tail) if chrono else None)
+            two_stage.FUSED_MULTI_MAX_ROWS = keep
+            if chrono:
+                tail[1] += q
+            return y
+        return call
+
+    def two_stage_shape(name, seed, seconds, scale, periods, want, calls=BATCHED_CALLS,
+                        positions=None):
+        """An aligned ``TwoStageFFTConvolver`` shape: ``calls`` parity calls
+        through :func:`drive` (the fused front end and the CHRONO tail once
+        each a call; ``positions``: the CHRONO history's rows after each
+        call, gated), then the forms of :data:`TWO_STAGE_FORMS` from the
+        engine's initial state on the first call's input, each timed (event
+        ms, device us, CUDA kernels) and held against the default form
+        (printed, not gated)."""
         rng = np.random.default_rng(seed)
         ir = (rng.standard_normal(seconds * SR) * scale).astype(np.float32)
         eng = TwoStageFFTConvolver(ir, BLOCK, len(ir), device=dev)
@@ -463,12 +532,45 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
         if got != want:
             fail(f"{name}: (tail block, period, head, big tail) {got} != {want}")
         t = periods * c.period
-        x = randn(rng, (BATCHED_CALLS, t, BLOCK))
-        twin, ir_d = eng.clone(), torch.from_numpy(ir).to(dev)
-        drive(name, x, lambda xc: eng.process(xc.reshape(-1)).view(xc.shape),
-              lambda xc: run_blocks(twin, xc),
-              lambda xa: conv64(xa.reshape(-1), ir_d).view(xa.shape),
-              3, t * BLOCK / SR, lambda k: [lambda: eng.process(x[0].reshape(-1))] * k)
+        x = randn(rng, (calls, t, BLOCK))
+        twin, pre, ir_d = eng.clone(), eng.clone(), torch.from_numpy(ir).to(dev)
+        rows = []
+
+        def batched(xc):
+            y = eng.process(xc.reshape(-1)).view(xc.shape)
+            rows.append(eng._tail_pos)
+            return y
+
+        rec = drive(name, x, batched, lambda xc: run_blocks(twin, xc),
+                    lambda xa: conv64(xa.reshape(-1), ir_d).view(xa.shape),
+                    (0, 1, 1), t * BLOCK / SR,
+                    lambda k: [lambda: eng.process(x[0].reshape(-1))] * k)
+        multi = two_stage.fused_uses_multi(c, t)
+        print(f"{name}: fused side passes {'MULTI' if multi else 'SEPARATE'} (T + n = "
+              f"{t + c.head.seg_count}, FUSED_MULTI_MAX_ROWS "
+              f"{two_stage.FUSED_MULTI_MAX_ROWS}); CHRONO rows after each call {rows} of "
+              f"{eng._chrono_h_cap}", flush=True)
+        if positions is not None and rows != positions:
+            fail(f"{name}: CHRONO rows {rows} != {positions}")
+        rec.update(chrono_rows=rows, fused_form="MULTI" if multi else "SEPARATE", forms={})
+        y_ref = None
+        for label, (fuse, chrono, other) in TWO_STAGE_FORMS.items():
+            call = aligned_form(pre, x[0], fuse, chrono, (not multi) if other else None)
+            n0 = core_calls()
+            y0 = call()
+            took = core_calls(n0)
+            y_ref = y0 if y_ref is None else y_ref
+            th = [call] * (BATCHED_WARMUP + BATCHED_TIMED)
+            ms = statistics.median(event_ms(th)[BATCHED_WARMUP:])
+            prof = profile_steps(lambda i: call(), BATCHED_PROFILED, 0)
+            form = {"ms": ms, "device_us": prof["device_us"],
+                    "cuda_kernels": prof["cuda_launches_per_step"], "stream_core_calls": took,
+                    "diff_vs_default": err64(y0, y_ref)}
+            rec["forms"][label] = form
+            print(f"{name} form {label}: {ms!r} ms a call (CUDA-event median), "
+                  f"{form['device_us']!r} device us in {form['cuda_kernels']!r} CUDA "
+                  f"kernels; stream cores {took}; first call vs the default form "
+                  f"{form['diff_vs_default']!r}", flush=True)
 
     def uniform_t(name, n, key):
         t = next_power_of_two(n + {1: 1023, 2: 511, 4: 255}[key]) - n + 1
@@ -476,8 +578,13 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
             fail(f"{name}: (segments, T) {(n, t)} != {CONFIG_SEGS_T[key]}")
         return t
 
-    # flagship: bench.py:163-178 (its IR and first call are phase 1's)
+    # flagship: bench.py:163-178 (its IR and first call are phase 1's); the
+    # CHRONO history compacts on the fourth call
     two_stage_shape("flagship two-stage", 0, IR_SECONDS, 0.01, FLAGSHIP_PERIODS,
+                    FLAGSHIP_SHAPES, FLAGSHIP_CALLS, FLAGSHIP_ROWS)
+    # the same engine at two periods a call: the fused front end's MULTI form,
+    # and a big tail the ring path sends to its block loop
+    two_stage_shape("flagship two-stage, 2 periods", 0, IR_SECONDS, 0.01, SHORT_PERIODS,
                     FLAGSHIP_SHAPES)
 
     # config 1: benchmarks/configs.py:92-118
@@ -490,7 +597,7 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
     drive("config 1 uniform", x, lambda xc: eng1.process(xc.reshape(-1)).view(xc.shape),
           lambda xc: run_blocks(twin1, xc),
           lambda xa: conv64(xa.reshape(-1), ir1_d).view(xa.shape),
-          1, t * BLOCK / SR, lambda k: [lambda: eng1.process(x[0].reshape(-1))] * k)
+          (1, 0, 0), t * BLOCK / SR, lambda k: [lambda: eng1.process(x[0].reshape(-1))] * k)
 
     # config 2: benchmarks/configs.py:121-146, the stereo farm at block 256
     rng = np.random.default_rng(1)
@@ -508,7 +615,7 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
 
     drive("config 2 uniform farm", x, lambda xc: farm.farm_stream(cfg2, st2, xc, kern_hat=kh2),
           lambda xc: torch.stack([farm.farm_step(cfg2, st2_seq, xt) for xt in xc]),
-          lambda xa: voices64(xa, irs2), 1, t * 256 / SR,
+          lambda xa: voices64(xa, irs2), (1, 0, 0), t * 256 / SR,
           lambda k: [lambda: farm.farm_stream(cfg2, st2, x[0], kern_hat=kh2)] * k)
 
     # config 3: benchmarks/configs.py:149-198
@@ -542,7 +649,7 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
           xfade_loop,
           lambda xa: crossfade.mix_samples(cc.cf_cfg, cf0, conv64(xa.reshape(-1), ira_d),
                                            conv64(xa.reshape(-1), irb_d)).view(xa.shape),
-          2, t * BLOCK / SR,
+          (2, 0, 0), t * BLOCK / SR,
           # each timed call on its own clone of the engine mid-fade
           lambda k: [functools.partial(c.process, x[0].reshape(-1))
                      for c in [cc.clone() for _ in range(k)]])
@@ -561,7 +668,7 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
     drive(f"short-IR ReverbFarm ({v} voices x {taps} taps)", x, fm.process,
           lambda xc: torch.stack([run_blocks(e, xc[:, i]) for e, i in zip(twins, checked)],
                                  dim=1),
-          lambda xa: voices64(xa, irs6), 2, t * BLOCK / SR,
+          lambda xa: voices64(xa, irs6), (2, 0, 0), t * BLOCK / SR,
           lambda k: [lambda: fm.process(x[0])] * k, pick=lambda y: y[:, :, checked])
 
     # B4 yardstick (printed, not gated): the conv core at B4's shape
@@ -569,11 +676,11 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
     t = x30.shape[1] // BLOCK
     y0 = yard.process(x30[0])
     yard_err = err64(y0, conv64(x30[0], torch.from_numpy(ir30).to(dev)))
-    n0 = core.calls
+    n0 = core_calls()
     ms = statistics.median(event_ms([functools.partial(yard.process, x30[1 + i])
                                      for i in range(YARD_WARMUP + YARD_TIMED)])[YARD_WARMUP:])
     prof = profile_steps(lambda i: yard.process(x30[i % x30.shape[0]]), BATCHED_PROFILED, 0)
-    if core.calls - n0 != YARD_WARMUP + YARD_TIMED + BATCHED_PROFILED:
+    if core_calls(n0) != (YARD_WARMUP + YARD_TIMED + BATCHED_PROFILED, 0, 0):
         fail("B4 yardstick: a call missed the conv core")
     m = uniform.meta_size(yard.cfg.seg_count, t)
     record["B4 yardstick"] = {"N": yard.cfg.seg_count, "T": t, "m": m, "ms": ms,
@@ -597,6 +704,18 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
         print(f"cuFFT of {rows} rows x {BLOCK + 1} bins: along dim -2 {us[0]!r} device us, "
               f"the same laid out along dim -1 {us[1]!r}", flush=True)
     return record
+
+
+def period_end_split(samples_s: list, period_end: list) -> dict:
+    """Host-clock samples split into the blocks that end a period and the
+    others: count, median, p99 and max in ms each."""
+    out = {}
+    for kind, want in (("period_end", True), ("other", False)):
+        ms = np.asarray([t for t, e in zip(samples_s, period_end, strict=True) if e == want])
+        out[kind] = {"n": int(ms.size), "p50_ms": float(np.percentile(ms, 50) * 1e3),
+                     "p99_ms": float(np.percentile(ms, 99) * 1e3),
+                     "max_ms": float(ms.max() * 1e3)}
+    return out
 
 
 def host_runtime(dev, counts: Counts, ir: np.ndarray, ir_b: np.ndarray, x_host: np.ndarray,
@@ -640,16 +759,20 @@ def host_runtime(dev, counts: Counts, ir: np.ndarray, ir_b: np.ndarray, x_host: 
 
     # host-callback latency: a numpy block in, a numpy block out, copies and sync included
     lat = {}
+    two = engines["B2"]
+    period_end = []  # B2: whether each timed block ends a period (runs the big tail)
     for label in ("B1", "B1p", "B2", "B3"):
         host = HostEngine(engines[label])
         rec = LatencyRecorder(block_size=BLOCK, sample_rate=SR)
         blocks = x_host[:HOST_LATENCY_WARMUP + HOST_LATENCY_BLOCKS]
 
-        def callbacks(host=host, rec=rec, blocks=blocks):
+        def callbacks(host=host, rec=rec, blocks=blocks, label=label):
             for i, xb in enumerate(blocks):
                 if i < HOST_LATENCY_WARMUP:
                     host.process(xb)
                     continue
+                if label == "B2":
+                    period_end.append(two.row == two.cfg.period - 1)
                 with rec.measure():
                     host.process(xb)
 
@@ -667,7 +790,29 @@ def host_runtime(dev, counts: Counts, ir: np.ndarray, ir_b: np.ndarray, x_host: 
               f"{rep['card_tensor_event_ms']!r} ms", flush=True)
         if not rep["p50_ms"] < BLOCK_MS:
             fail(f"{label}: host-callback median {rep['p50_ms']!r} ms >= {BLOCK_MS!r} ms")
+        if label == "B2":
+            rep["split"] = period_end_split(rec.samples_s, period_end)
     record["host_callback_latency"] = lat
+
+    # B2's big-tail step alone (the wrapper's period end: the uniform engine
+    # at the tail block over the period input), CUDA events on a copy
+    step = two.clone()
+    tail_in = step.buffers["tail_input"].reshape(-1)
+    for _ in range(3):
+        uniform.process_block(step.cfg.tail, step.tail_state, tail_in)
+    torch.cuda.synchronize()
+    tail_ms = event_ms([lambda: uniform.process_block(step.cfg.tail, step.tail_state, tail_in)]
+                       * TAIL_STEP_REPS)
+    lat["B2"]["big_tail_step_event_ms"] = {"median": statistics.median(tail_ms),
+                                           "max": max(tail_ms), "reps": len(tail_ms)}
+    split = lat["B2"]["split"]
+    for kind in ("period_end", "other"):
+        r = split[kind]
+        print(f"host-callback latency B2, {kind.replace('_', '-')} blocks ({r['n']}): median "
+              f"{r['p50_ms']!r} ms, p99 {r['p99_ms']!r} ms, max {r['max_ms']!r} ms", flush=True)
+    print(f"B2 big-tail step alone (tail block {two.cfg.tail_block}, "
+          f"{two.cfg.tail.seg_count} segments): CUDA-event median {statistics.median(tail_ms)!r}"
+          f" ms, max {max(tail_ms)!r} ms over {len(tail_ms)}", flush=True)
 
     # StreamingConvolver over the batched two-stage engine: 441-sample pushes
     # (the sub-block route), a push back to the block boundary, a
@@ -684,20 +829,21 @@ def host_runtime(dev, counts: Counts, ir: np.ndarray, ir_b: np.ndarray, x_host: 
         s = StreamingConvolver(eng)
         return np.concatenate([s.push(x_st[i:i + n]) for i, n in zip(starts, sizes)])
 
-    t0, core0 = time.perf_counter(), uniform._stream_conv.calls
+    t0, core0 = time.perf_counter(), core_calls()
     y_st = counts.drive("StreamingConvolver (441-sample and block-aligned pushes)", stream, {})
-    wall, core_calls = time.perf_counter() - t0, uniform._stream_conv.calls - core0
+    wall, cores = time.perf_counter() - t0, core_calls(core0)
     print(f"StreamingConvolver: {HOST_STREAM_PUSHES} pushes of {PUSH}, one of {back}, one "
-          f"block-aligned of {aligned}, 10 of {PUSH}; the conv core ran {core_calls} times",
-          flush=True)
-    if core_calls == 0:
-        fail("StreamingConvolver: the block-aligned push did not reach the batched route")
+          f"block-aligned of {aligned}, 10 of {PUSH}; the ring conv core, the fused front "
+          f"end and the CHRONO tail ran {cores} times", flush=True)
+    if cores != (0, 1, 1):
+        fail("StreamingConvolver: the block-aligned push did not take the fused front end "
+             "and the CHRONO tail once each")
     ref = conv64(torch.from_numpy(x_st).to(dev), torch.from_numpy(ir).to(dev)).cpu().numpy()
     err = float(np.abs(y_st - ref).max())
     gate(f"StreamingConvolver over TwoStageFFTConvolver, {len(sizes)} pushes ({len(x_st)} "
          f"samples), vs float64 convolution", err, PARITY_TOL)
     record["StreamingConvolver"] = {"samples": len(x_st), "aligned_push": aligned,
-                                    "conv_core_calls": core_calls, "err_f64": err,
+                                    "stream_core_calls": cores, "err_f64": err,
                                     "wall_s": wall}
 
     # RealTimeDispatcher over B3, a morph posted a third of the way in: the

@@ -113,8 +113,8 @@ class ReverbFarm:
         self._step = (cuda_farm_mac.phased_step_packed if tail_dtype == torch.bfloat16
                       else cuda_farm_mac.phased_step)
         # head-kernel meta-spectra per meta length m, with the call length
-        # that built them (the short-IR farm: two_stage.stream_khats per call
-        # length T): input-independent between IR updates
+        # that built them (the short-IR farm: two_stage.small_stream_khats
+        # per call length T): input-independent between IR updates
         self._khat_cache: dict[int, tuple[int, torch.Tensor] | dict] = {}
 
     @property
@@ -160,7 +160,7 @@ class ReverbFarm:
                 "stream into consecutive process() calls")
         if self.cfg.tail is None:
             if t not in self._khat_cache:
-                self._khat_cache[t] = two_stage.stream_khats(self.cfg, self.state, t)
+                self._khat_cache[t] = two_stage.small_stream_khats(self.cfg, self.state, t)
             return farm2.farm2_stream(self.cfg, self.state, x, head_khat=self._khat_cache[t])
         m = next_power_of_two(2 * self.cfg.head.seg_count - 1 + t)
         if m not in self._khat_cache:

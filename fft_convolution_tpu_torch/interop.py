@@ -1,7 +1,8 @@
 """State carrier from the JAX package to this one.
 
 Turns the JAX package's engine and kernel states — ``UniformState``,
-``TwoStageState``, ``CrossfaderState``, and the Pallas kernels'
+``TwoStageState``, the big tail's CHRONO history pair (both ways),
+``CrossfaderState``, and the Pallas kernels'
 ``PallasFDLState`` / ``PallasFDLConsts`` (and their packed forms),
 ``FusedHeadState`` / ``FusedHeadConsts``, ``XfadeState`` / ``XfadeConsts``,
 ``StreamState`` / ``StreamConsts`` / ``StreamConstsPacked``, the reverb
@@ -28,7 +29,7 @@ from .ops.cuda_crossfade import XfadeConsts, XfadeState
 from .ops.cuda_engine import FDLConsts, FDLState, to_bf16
 from .ops.cuda_stream import StreamConsts, StreamState
 from .ops.cuda_two_stage import FusedConsts, FusedState
-from .ops.fft import packed_to_complex, twiddles
+from .ops.fft import complex_to_packed, packed_to_complex, twiddles
 from .parallel.farm2 import Farm2State, TailState
 from .parallel.partition import ShardedFDLState
 
@@ -85,6 +86,22 @@ def two_stage_state(js, device="cpu") -> TwoStageState:
         tail_input=_f32(js.tail_input, device),
         tail_fill=_int(js.tail_fill), precalc_pos=_int(js.precalc_pos),
     )
+
+
+def chrono(jchrono, device="cpu") -> tuple[torch.Tensor, int]:
+    """A JAX CHRONO pair ``((hist_re, hist_im), pos)`` (planes ``[h_cap,
+    B]``, Nyquist in ``im[0]``) as this package's ``(hist, pos)``:
+    ``complex64 [h_cap, B + 1]`` and a host int."""
+    (re, im), pos = jchrono
+    return _planes(re, im, device), _int(pos)
+
+
+def chrono_to_jax(hist: torch.Tensor, pos: int) -> tuple[tuple[np.ndarray, np.ndarray], int]:
+    """This package's ``(hist, pos)`` as the JAX pair's numpy planes (the
+    inverse of :func:`chrono`; the DC and Nyquist bins' imaginary parts,
+    zero for real blocks, are dropped)."""
+    packed = complex_to_packed(hist.detach().cpu()).numpy()
+    return (np.ascontiguousarray(packed[:, 0]), np.ascontiguousarray(packed[:, 1])), pos
 
 
 def fdl(jconsts, jstate, device="cpu") -> tuple[FDLConsts, FDLState]:

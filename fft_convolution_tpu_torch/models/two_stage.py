@@ -14,9 +14,11 @@ Absent stages are empty (zero-output) engines.  As in :mod:`.uniform`, the
 functions update the state in place; :meth:`TwoStageState.clone` copies it.
 
 Period-aligned streams (:func:`process_stream_aligned`) run the three
-stages as independent batched uniform streams whose outputs sum with fixed
-period delays.  The JAX package's fused head+tail0 front end and its CHRONO
-big-tail history are not ported: they change no output.
+stages as batched streams whose outputs sum with fixed period delays: head
+and tail0 through one fused front end (one transform, one ring rebuild,
+the combined ``2n``-segment kernel) where their rings allow it, the big
+tail through the ring's conv core or, for the wrapper, through the
+chronological CHRONO history (:func:`tail_to_chrono`).
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..ops.fft import copy_and_pad, next_power_of_two
+from ..ops.fft import (causal_conv_khat, causal_conv_multi, copy_and_pad, irdft_block,
+                       next_power_of_two, rdft_block)
 from . import uniform
 
 # FFT cost constant k relative to a multiply-add, as suggested by García and
@@ -244,30 +247,201 @@ def tail_uses_conv_core(cfg: TwoStageConfig, t: int) -> bool:
     return q * n >= TAIL_CONV_RATIO * uniform.meta_size(n, q)
 
 
-def stream_khats(cfg: TwoStageConfig, state: TwoStageState, t: int) -> dict:
+def small_stream_khats(cfg: TwoStageConfig, state: TwoStageState, t: int) -> dict:
+    """The separate head and tail0 streams' kernel meta-spectra for
+    ``t``-block calls: ``head`` and ``t0`` (:func:`.uniform.stream_khat`;
+    ``t0`` None without a tail0 stage)."""
+    return {"head": uniform.stream_khat(cfg.head, state.head, t),
+            "t0": (uniform.stream_khat(cfg.tail0, state.tail0, t)
+                   if cfg.tail0 is not None else None)}
+
+
+def stream_khats(cfg: TwoStageConfig, state: TwoStageState, t: int,
+                 want_tail: bool | None = None) -> dict:
     """The stages' kernel meta-spectra for ``t``-block aligned calls
-    (``stream_khats``, ``fft_convolution_tpu/models/two_stage.py:640``,
-    its separate-streams entries): ``head`` and ``t0``
-    (:func:`.uniform.stream_khat`; ``t0`` None without a tail0 stage), and
-    ``tail`` when :func:`tail_uses_conv_core` sends the big tail to the
-    conv core.  Input-independent between IR updates; pass to
+    (``stream_khats``, ``fft_convolution_tpu/models/two_stage.py:640``):
+    :func:`small_stream_khats`; ``tail`` when :func:`tail_uses_conv_core`
+    sends the big tail to the conv core, or as ``want_tail`` says (the
+    CHRONO tail serves every call length through the conv core, so its
+    callers pass True); and where the stage configs fuse, ``comb`` (the
+    combined kernel's, :func:`combined_head_kernel`) with ``t0f`` (tail0's
+    table at the same meta size, the MULTI form) or ``small`` and ``rec``
+    (the SEPARATE side passes' sizes), per :func:`fused_uses_multi`.
+    Input-independent between IR updates; pass to
     :func:`process_stream_aligned` as ``khats=``."""
-    out = {"head": uniform.stream_khat(cfg.head, state.head, t),
-           "t0": (uniform.stream_khat(cfg.tail0, state.tail0, t)
-                  if cfg.tail0 is not None else None)}
-    if tail_uses_conv_core(cfg, t):
+    out = small_stream_khats(cfg, state, t)
+    use_tail = (tail_uses_conv_core(cfg, t) if want_tail is None
+                else want_tail and cfg.tail is not None)
+    if use_tail:
         out["tail"] = uniform.stream_khat(cfg.tail, state.tail, t // cfg.period)
+    if cfg.tail0 is not None and cfg.head == cfg.tail0:
+        n, t0_ir = cfg.head.seg_count, state.tail0.segments_ir
+        m_comb = next_power_of_two(t + 2 * n - 1)
+        out["comb"] = causal_conv_khat(combined_head_kernel(state.head, state.tail0), m_comb)
+        if fused_uses_multi(cfg, t):
+            out["t0f"] = causal_conv_khat(t0_ir, m_comb)
+        else:
+            out["small"] = causal_conv_khat(t0_ir, 2 * n)
+            out["rec"] = causal_conv_khat(t0_ir, next_power_of_two(n - 1 + _rec_rows(cfg, t)))
     return out
+
+
+def combined_head_kernel(st_h: uniform.UniformState,
+                         st_t0: uniform.UniformState) -> torch.Tensor:
+    """The combined head+tail0 table ``[..., 2n, B+1]``: segment ``n + j``
+    is tail0's segment ``j``, applied ``n`` blocks (one period) later
+    (``_combined_head_kernel``,
+    ``fft_convolution_tpu/parallel/farm2.py:837``).  The single-voice fused
+    front end and the farm's heads share it."""
+    return torch.cat([st_h.segments_ir, st_t0.segments_ir], dim=-2)
+
+
+# The fused front end's two forms of its side passes (the first-period
+# subtract and the exit-state rows), ``FUSED_MULTI_MAX_ROWS``
+# (``fft_convolution_tpu/models/two_stage.py:417-434``): MULTI, rows of one
+# tail0-table convolution against the shared ext, one forward transform and
+# one inverse for the whole front end, but a tail0 product across all n + T
+# rows; SEPARATE, two small convolutions whose sizes do not grow with T.
+# The JAX package's crossover, kept until an H100 measurement asks for
+# another (``chip_smoke.py`` phase 15 prints both at the flagship).
+FUSED_MULTI_MAX_ROWS = 2048
+
+
+def fused_uses_multi(cfg: TwoStageConfig, t: int) -> bool:
+    """Whether a ``t``-block fused call takes the MULTI form
+    (``fused_uses_multi``, ``fft_convolution_tpu/models/two_stage.py:437``)."""
+    return t + cfg.head.seg_count <= FUSED_MULTI_MAX_ROWS
+
+
+def _rec_rows(cfg: TwoStageConfig, t: int) -> int:
+    """tail0's raw rows the fused exit state is rebuilt from: the last
+    ``min(q, 2)`` periods and one block before them."""
+    return min(t // cfg.period, 2) * cfg.period + 1
+
+
+def _fused_small_streams(cfg: TwoStageConfig, state: TwoStageState, blocks: torch.Tensor,
+                         khats: dict) -> torch.Tensor:
+    """``head(x) + delay_1_period(tail0(x))`` for ``blocks [..., T, B]``
+    through one forward transform, one ring rebuild and the combined
+    ``2n``-segment kernel (``_fused_small_streams``,
+    ``fft_convolution_tpu/models/two_stage.py:444``); updates both stages,
+    ``tail_precalc0`` and ``tail_output0`` in place and returns ``y``.
+    ``_fused_small_streams.calls`` counts the calls.
+
+    With one config the two rings are equal, and the period equals the
+    segment count, so tail0's one-period delay is a shift of its kernel by
+    ``n`` segments.  The ring gives the ``n``-block history; the combined
+    kernel's reads before it land in the zero pad (``m`` >= ``T + 2n - 1``).
+    Two side passes keep the sequential schedule's contract: the first
+    period's tail0 part comes from ``tail_precalc0``, so the delayed terms
+    the combined kernel forms from the history (rows ``[0, p)`` of tail0's
+    convolution) are subtracted, and tail0's overlap joins at row ``p``;
+    the exit state (tail0's overlap, its last two periods' output, the head
+    overlap without the delayed part) comes from rows ``[T + n - nrec, T +
+    n)`` of tail0's convolution.  MULTI takes both from one tail0
+    convolution over the shared transform, SEPARATE from two small ones
+    (:func:`fused_uses_multi`).
+
+    Precondition (:func:`process_stream_aligned`'s host-int guard): both
+    rings full (``active_segs == n``) with one ``current < n``."""
+    _fused_small_streams.calls += 1
+    hcfg, st_h, st_t0 = cfg.head, state.head, state.tail0
+    b, n, p = hcfg.block_size, hcfg.seg_count, cfg.period
+    t = blocks.shape[-2]
+    q = t // p
+    lead = blocks.shape[:-2]
+    kh = khats or {}
+    specs = rdft_block(blocks, hcfg.fft_size)                     # [..., T, B+1]
+    window = uniform.ring_window(st_h.segments, st_h.current)    # blocks -n..-1
+    ext = torch.cat([window, specs], dim=-2)                      # [..., n + T, B+1]
+    m_comb = next_power_of_two(t + 2 * n - 1)
+    nrec = _rec_rows(cfg, t)
+    t0_ir = st_t0.segments_ir
+    comb = combined_head_kernel(st_h, st_t0) if kh.get("comb") is None else None
+    if fused_uses_multi(cfg, t):
+        conv, t0full = causal_conv_multi(ext, [comb, t0_ir], [(n, t), (0, n + t)], m=m_comb,
+                                         kern_hats=[kh.get("comb"), kh.get("t0f")])
+        w = t0full[..., :p, :]
+        conv0 = t0full[..., t + n - nrec:, :]
+    else:
+        (conv,) = causal_conv_multi(ext, [comb], [(n, t)], m=m_comb,
+                                    kern_hats=[kh.get("comb")])
+        # tail0 over the history window alone, rows [0, p): reads before it
+        # wrap into the 2n-row pad
+        (w,) = causal_conv_multi(window, [t0_ir], [(0, p)], m=2 * n,
+                                 kern_hats=[kh.get("small")])
+        (conv0,) = causal_conv_multi(ext[..., t - nrec + 1:, :], [t0_ir], [(n - 1, nrec)],
+                                     m=next_power_of_two(n - 1 + nrec),
+                                     kern_hats=[kh.get("rec")])
+    conv[..., :p, :] -= w
+    raw = irdft_block(torch.cat([conv, conv0], dim=-2), hcfg.fft_size)  # [..., T + nrec, 2B]
+    outs, raw0 = raw[..., :t, :], raw[..., t:, :]
+    y = outs[..., :b] + torch.cat([st_h.overlap[..., None, :], outs[..., :-1, b:]], dim=-2)
+    # the first period's tail0 part is the carried tail_precalc0; row p's
+    # overlap from the first period is head-only after the subtract, so
+    # tail0's own overlap joins there
+    y[..., :p, :] += state.tail_precalc0.reshape(*lead, p, b)
+    if t > p:
+        y[..., p, :] += st_t0.overlap
+    out0 = raw0[..., 1:, :b] + raw0[..., :-1, b:]                  # tail0's blocks [T-nrec+1, T)
+    if q <= 2:
+        # block 0's seam is tail0's carried overlap, not block -1's raw tail
+        # rebuilt from the history: they differ after an update, which
+        # zeroes the overlap (the JAX package's form takes the raw tail)
+        out0[..., 0, :] = raw0[..., 1, :b] + st_t0.overlap
+    output0 = out0[..., :p, :].reshape(*lead, p * b) if q >= 2 else state.tail_precalc0
+    state.tail_precalc0, state.tail_output0 = out0[..., -p:, :].reshape(*lead, p * b), output0
+    # the shared ring, the head overlap without tail0's delayed part
+    # (raw0's row -(p + 1) is tail0's raw block T - 1 - p), tail0's overlap
+    cur = (st_h.current - t) % n
+    segments, byd = uniform.ring_from_ext(ext, n + t, n, cur)
+    for st in (st_h, st_t0):
+        st.pre_multiplied = (st.segments_ir[..., 1:, :] * byd[..., 1:, :]).sum(dim=-2)
+        st.current = cur
+    st_h.overlap = outs[..., -1, b:] - raw0[..., -(p + 1), b:] if t > p \
+        else outs[..., -1, b:].contiguous()
+    st_t0.overlap = raw0[..., -1, b:].contiguous()
+    st_h.segments, st_t0.segments = segments, segments.clone()
+    return y
+
+
+_fused_small_streams.calls = 0
+
+
+def tail_to_chrono(cfg: TwoStageConfig, state: TwoStageState,
+                   h_cap: int) -> tuple[torch.Tensor, int]:
+    """The big tail's ring into the CHRONO history, in place
+    (``tail_to_chrono``, ``fft_convolution_tpu/models/two_stage.py:690``):
+    returns ``(hist, pos)`` (:func:`.uniform.ring_to_chrono`).
+    Precondition: the tail ring is full."""
+    return uniform.ring_to_chrono(cfg.tail, state.tail, h_cap)
+
+
+def tail_from_chrono(cfg: TwoStageConfig, state: TwoStageState,
+                     tail_chrono: tuple[torch.Tensor, int]) -> None:
+    """The big tail's ring rebuilt from ``(hist, pos)``, in place
+    (``tail_from_chrono``, ``fft_convolution_tpu/models/two_stage.py:702``):
+    every ring consumer takes the result."""
+    uniform.chrono_to_ring(cfg.tail, state.tail, *tail_chrono)
+
+
+def tail_chrono_compact(cfg: TwoStageConfig, tail_chrono: tuple[torch.Tensor, int]) -> int:
+    """:func:`.uniform.chrono_compact` of the big tail's history
+    (``tail_chrono_compact``, ``fft_convolution_tpu/models/two_stage.py:715``);
+    returns the new ``pos``."""
+    return uniform.chrono_compact(cfg.tail, *tail_chrono)
 
 
 def process_stream_aligned(cfg: TwoStageConfig, state: TwoStageState,
                            blocks: torch.Tensor, khats: dict | None = None,
-                           big_stream: Callable | None = None) -> torch.Tensor:
+                           big_stream: Callable | None = None, fuse_small: bool = True,
+                           tail_chrono: tuple[torch.Tensor, int] | None = None
+                           ) -> torch.Tensor:
     """Period-aligned batched streaming (``process_stream_aligned``,
-    ``fft_convolution_tpu/models/two_stage.py:726``, its separate-streams
-    form): ``blocks [..., T, B] -> y [..., T, B]`` with ``T`` a multiple of
-    the period and ``tail_fill == 0`` (the caller checks); leading axes are
-    voices of one lockstep state.
+    ``fft_convolution_tpu/models/two_stage.py:726``): ``blocks [..., T, B]
+    -> y [..., T, B]`` with ``T`` a multiple of the period and ``tail_fill
+    == 0`` (the caller checks); leading axes are voices of one lockstep
+    state.
 
     The double-buffered tails of the sequential schedule
     (``src/fft_convolver.rs:439-456,473-486``) make the stages independent
@@ -275,15 +449,21 @@ def process_stream_aligned(cfg: TwoStageConfig, state: TwoStageState,
 
         y = head(x) + delay_1_period(tail0(x)) + delay_2_periods(tail(x))
 
-    tail0 at the head block over the same blocks, the big tail at the tail
-    block over period-sized superblocks, each through
-    :func:`.uniform.process_stream` with its ``khats`` entry.  The exit
-    state holds the sequential schedule's buffers exactly, so the aligned
-    and block paths interleave freely.
-
-    ``big_stream(tail_cfg, tail_state, rows [q, tail_block]) -> [q,
-    tail_block]`` replaces the big tail's stream (the sharded tail of
-    :mod:`..parallel.two_stage_sp`)."""
+    Head and tail0 (at the head block, over the same blocks) take the fused
+    front end (:func:`_fused_small_streams`) when ``fuse_small``, their
+    configs are one, and a guard on host ints holds: both rings full and
+    clean with one ``current`` (the reference's shortcut omits the
+    ``current`` check, ROADMAP C1).  Otherwise each takes
+    :func:`.uniform.process_stream` with its ``khats`` entry.  The big tail
+    runs at the tail block over period-sized superblocks: through
+    :func:`.uniform.stream_conv_chrono` on ``tail_chrono = (hist, pos)``
+    when given (``state.tail`` in the CHRONO convention, the call fitting
+    the history; the caller advances ``pos`` by ``T / period`` and owns
+    compaction), else through ``big_stream(tail_cfg, tail_state, rows [q,
+    tail_block]) -> [q, tail_block]`` (the sharded tail of
+    :mod:`..parallel.two_stage_sp`), else :func:`.uniform.process_stream`.
+    The exit state holds the sequential schedule's buffers exactly, so the
+    aligned and block paths interleave freely."""
     b, tb, p = cfg.head_block, cfg.tail_block, cfg.period
     t = blocks.shape[-2]
     q = t // p
@@ -291,19 +471,32 @@ def process_stream_aligned(cfg: TwoStageConfig, state: TwoStageState,
         raise ValueError(f"T={t} must be a positive multiple of the period {p}")
     lead = blocks.shape[:-2]
     kh = khats or {}
-    y = uniform.process_stream(cfg.head, state.head, blocks, kh.get("head"))
-    yq = y.view(*lead, q, tb)
-    if cfg.tail0 is not None:
-        out0 = uniform.process_stream(cfg.tail0, state.tail0, blocks,
-                                      kh.get("t0")).view(*lead, q, tb)
-        yq[..., 0, :] += state.tail_precalc0
-        yq[..., 1:, :] += out0[..., :-1, :]
-        output0 = out0[..., -2, :].clone() if q >= 2 else state.tail_precalc0
-        state.tail_precalc0, state.tail_output0 = out0[..., -1, :].clone(), output0
+    n = cfg.head.seg_count
+    sh, s0 = state.head, state.tail0
+    if (fuse_small and cfg.tail0 is not None and cfg.head == cfg.tail0
+            and sh.active_segs == n and s0.active_segs == n
+            and sh.current < n and sh.current == s0.current):
+        y = _fused_small_streams(cfg, state, blocks, kh)
+        yq = y.view(*lead, q, tb)
+    else:
+        y = uniform.process_stream(cfg.head, sh, blocks, kh.get("head"))
+        yq = y.view(*lead, q, tb)
+        if cfg.tail0 is not None:
+            out0 = uniform.process_stream(cfg.tail0, s0, blocks,
+                                          kh.get("t0")).view(*lead, q, tb)
+            yq[..., 0, :] += state.tail_precalc0
+            yq[..., 1:, :] += out0[..., :-1, :]
+            output0 = out0[..., -2, :].clone() if q >= 2 else state.tail_precalc0
+            state.tail_precalc0, state.tail_output0 = out0[..., -1, :].clone(), output0
     if cfg.tail is not None:
         rows = blocks.reshape(*lead, q, tb)
-        out_t = (uniform.process_stream(cfg.tail, state.tail, rows, kh.get("tail"))
-                 if big_stream is None else big_stream(cfg.tail, state.tail, rows))
+        if tail_chrono is not None:
+            out_t = uniform.stream_conv_chrono(cfg.tail, state.tail, *tail_chrono, rows,
+                                               kh.get("tail"))
+        elif big_stream is not None:
+            out_t = big_stream(cfg.tail, state.tail, rows)
+        else:
+            out_t = uniform.process_stream(cfg.tail, state.tail, rows, kh.get("tail"))
         yq[..., 0, :] += state.tail_precalc
         if q >= 2:
             yq[..., 1, :] += state.tail_output

@@ -35,9 +35,12 @@ line's MAC over all T blocks at once: it is a causal convolution along the
 block axis (``conv[t] = sum_i ir[i] * X[t - i]``), computed by
 :func:`..ops.fft.causal_conv_time` on ``torch.fft`` over the chronological
 history from the ring followed by the new spectra (:func:`_stream_conv`).
-The JAX package's other stream cores (ring scans, correlation windows,
-the CHRONO history) are not ported: the sequential :func:`process_block`
-loop is the reference semantics where the conv core does not apply.
+The CHRONO convention (:func:`stream_conv_chrono`) keeps that history
+chronological between calls, so a stream of aligned calls (the two-stage
+wrapper's big tail) skips the ring's gather and rebuild.  The JAX
+package's other stream cores (ring scans, correlation windows) are not
+ported: the sequential :func:`process_block` loop is the reference
+semantics where the conv core does not apply.
 """
 
 from __future__ import annotations
@@ -238,6 +241,14 @@ def ring_from_ext(ext: torch.Tensor, end: int, n: int,
     return by_delay.roll(current + 1, dims=-2), by_delay
 
 
+def ring_window(segments: torch.Tensor, current: int) -> torch.Tensor:
+    """The ``n`` blocks of a full ring (``active == n``) before the next
+    write, oldest first: delays ``n .. 1``, the ring read backwards from
+    the head slot ``current``.  Rows ``1:`` are the history a stream's
+    causal convolution needs."""
+    return segments.roll(-(current + 1), dims=-2).flip(-2)
+
+
 def _stream_conv(cfg: UniformConfig, state: UniformState, specs: torch.Tensor,
                  kern_hat: torch.Tensor | None = None) -> torch.Tensor:
     """The MAC of ``t`` blocks' spectra ``specs [..., T, B+1]`` as one causal
@@ -263,7 +274,7 @@ def _stream_conv(cfg: UniformConfig, state: UniformState, specs: torch.Tensor,
         ext = specs
     else:
         if active == n:
-            hist = torch.cat([seg[..., cur + 1:, :], seg[..., :cur, :]], dim=-2).flip(-2)
+            hist = ring_window(seg, cur)[..., 1:, :]
         else:
             k = torch.arange(n - 1, device=seg.device)
             hist = seg[..., (cur + n - 1 - k) % active, :]
@@ -303,6 +314,112 @@ def stream_conv(cfg: UniformConfig, state: UniformState, blocks: torch.Tensor,
     y = outs[..., :b] + torch.cat([state.overlap[..., None, :], outs[..., :-1, b:]], dim=-2)
     state.overlap = outs[..., -1, b:].contiguous()
     return y
+
+
+# CHRONO: the history of block-aligned streams kept chronological
+# (``fft_convolution_tpu/models/uniform.py:792-967``).  A stream needs only
+# the last N - 1 spectra oldest first, so the ring's history gather on the
+# way in and its rebuild on the way out become one write of the T new
+# spectra into ``hist`` (``complex64 [h_cap, B+1]``, one tensor: the JAX
+# package's plane split is a TPU layout rule).  ``pos`` (a host int) rows
+# are occupied; rows ``>= pos`` are zero and ``pos >= N - 1`` (conversion
+# and compaction establish both), so the m-row window starting N - 1 rows
+# before the new spectra is the ring path's history, new spectra and zero
+# pad.  While a stream is in CHRONO its ``segments`` is a one-row
+# placeholder, so a ring consumer that forgot to convert fails on a shape.
+
+
+def chrono_capacity(cfg: UniformConfig, t_hint: int = 0) -> int:
+    """Default ``hist`` rows: slack for compaction to amortise over many
+    calls, and at least a ``t_hint``-block call's window
+    (``chrono_capacity``, ``fft_convolution_tpu/models/uniform.py:824``)."""
+    n = cfg.seg_count
+    return next_power_of_two(max(4 * n, n - 1 + t_hint, 8))
+
+
+def chrono_fits(cfg: UniformConfig, h_cap: int, pos: int, t: int) -> bool:
+    """Whether a ``t``-block call fits ``h_cap`` rows at ``pos`` without
+    compaction (``chrono_fits``,
+    ``fft_convolution_tpu/models/uniform.py:832``)."""
+    n = cfg.seg_count
+    return pos + t <= h_cap and pos - (n - 1) + meta_size(n, t) <= h_cap
+
+
+def ring_to_chrono(cfg: UniformConfig, state: UniformState,
+                   h_cap: int) -> tuple[torch.Tensor, int]:
+    """Full clean ring -> CHRONO (``ring_to_chrono``,
+    ``fft_convolution_tpu/models/uniform.py:840``): returns ``(hist, pos)``
+    with the ring's last ``N - 1`` spectra oldest first at rows ``[0, N-1)``
+    and ``pos = N - 1``; ``state.segments`` becomes a ``[1, B+1]``
+    placeholder and ``current`` 0.  Precondition (the caller's):
+    ``active_segs == seg_count``."""
+    n = cfg.seg_count
+    hist = state.segments.new_zeros((h_cap, cfg.bins))
+    if n > 1:
+        hist[:n - 1] = ring_window(state.segments, state.current)[1:]
+    state.segments = state.segments.new_zeros((1, cfg.bins))
+    state.current = 0
+    return hist, n - 1
+
+
+def chrono_to_ring(cfg: UniformConfig, state: UniformState, hist: torch.Tensor,
+                   pos: int) -> None:
+    """CHRONO -> ring, in place (``chrono_to_ring``,
+    ``fft_convolution_tpu/models/uniform.py:868``): ``current = N - 1``,
+    slot ``d - 1`` holds the block of delay ``d``, and the head slot, which
+    the ring's next step overwrites unread, is zero."""
+    n = cfg.seg_count
+    ring = hist.new_zeros((n, cfg.bins))
+    ring[:n - 1] = hist[pos - (n - 1):pos].flip(0)
+    state.segments = ring
+    state.current = n - 1
+
+
+def chrono_compact(cfg: UniformConfig, hist: torch.Tensor, pos: int) -> int:
+    """Move the live ``N - 1``-row window to the start of ``hist`` and zero
+    the rows after it, in place (``chrono_compact``,
+    ``fft_convolution_tpu/models/uniform.py:892``); returns the new ``pos``,
+    ``N - 1``.  The caller calls it when :func:`chrono_fits` says no."""
+    n = cfg.seg_count
+    if n > 1:
+        hist[:n - 1] = hist[pos - (n - 1):pos].clone()
+    hist[n - 1:pos] = 0  # rows >= pos are zero already
+    return n - 1
+
+
+def stream_conv_chrono(cfg: UniformConfig, state: UniformState, hist: torch.Tensor,
+                       pos: int, blocks: torch.Tensor,
+                       kern_hat: torch.Tensor | None = None) -> torch.Tensor:
+    """``blocks [T, B] -> y [T, B]`` through the conv core on the CHRONO
+    history (``stream_conv_chrono_unguarded``,
+    ``fft_convolution_tpu/models/uniform.py:912``): the T new spectra
+    written in place at rows ``[pos, pos + T)`` of ``hist``, the causal
+    convolution over the m-row window from ``pos - (N - 1)``, the inverse
+    transforms and the overlap-add.  ``pre_multiplied`` follows the
+    sequential identity, as in :func:`_stream_conv`.  The caller's host
+    ``pos`` advances by T; it owns compaction (:func:`chrono_fits`) and
+    the full-ring precondition.  ``stream_conv_chrono.calls`` counts the
+    calls."""
+    stream_conv_chrono.calls += 1
+    b, n = cfg.block_size, cfg.seg_count
+    t = blocks.shape[-2]
+    m = meta_size(n, t)
+    if not chrono_fits(cfg, hist.shape[-2], pos, t):
+        raise ValueError(f"a {t}-block call at pos {pos} (window m={m}) overruns the "
+                         f"{hist.shape[-2]}-row history; compact it first")
+    specs = rdft_block(blocks, cfg.fft_size)
+    hist[pos:pos + t] = specs
+    start = pos - (n - 1)
+    kern = state.segments_ir if kern_hat is not None else _table(cfg, state)
+    convs = causal_conv_time(hist[start:start + m], kern, t, kern_hat=kern_hat, m=m)
+    state.pre_multiplied = convs[-1] - specs[-1] * state.segments_ir[0]
+    outs = irdft_block(convs, cfg.fft_size)
+    y = outs[:, :b] + torch.cat([state.overlap[None], outs[:-1, b:]])
+    state.overlap = outs[-1, b:].contiguous()
+    return y
+
+
+stream_conv_chrono.calls = 0
 
 
 def process_stream(cfg: UniformConfig, state: UniformState, blocks: torch.Tensor,

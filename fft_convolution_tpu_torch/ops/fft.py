@@ -124,6 +124,46 @@ def causal_conv_time(ext: torch.Tensor, kern: torch.Tensor, t_out: int,
     return out[..., r0:r0 + t_out].mT
 
 
+def causal_conv_multi(ext: torch.Tensor, kerns: list, windows: list[tuple[int, int]],
+                      m: int | None = None, kern_hats: list | None = None) -> list:
+    """Several :func:`causal_conv_time` convolutions against one shared
+    ``ext``: one forward DFT of ``ext`` along the block axis, each kernel's
+    meta-spectrum multiplied in, one inverse over the stacked products —
+    counterpart of ``causal_conv_multi``
+    (``fft_convolution_tpu/ops/fft.py:550``).
+
+    ``kerns``: raw kernel tables ``complex64 [..., N_i, B+1]``;
+    ``kern_hats``: optional list of the same length whose non-None entries
+    (:func:`causal_conv_khat` at this ``m``) replace their kernel's DFT
+    (that kernel may then be None).  ``windows``: one ``(row0, count)``
+    output window a kernel, ``row0`` as in :func:`causal_conv_time`; the
+    caller sizes ``m`` so that every window's reads before row 0 land in the
+    zero pad.  The inverse keeps the union of the windows, and each result
+    is a bins-major view sliced from it: ``complex64 [..., count_i, B+1]``,
+    equal to ``causal_conv_time(ext, kerns[i], count_i, m=m, row0=row0_i)``."""
+    if len(kerns) != len(windows) or not kerns:
+        raise ValueError(f"{len(kerns)} kernels for {len(windows)} windows")
+    hats = kern_hats if kern_hats is not None else [None] * len(kerns)
+    lt = ext.shape[-2]
+    if m is None:
+        m = next_power_of_two(lt)
+    elif m < lt or m & (m - 1):
+        raise ValueError(f"m={m} must be a power of two >= len(ext)={lt}")
+    ehat = torch.fft.fft(ext.mT, n=m, dim=-1)                   # [..., B+1, m]
+    prods = []
+    for kern, khat in zip(kerns, hats):
+        if khat is None:
+            khat = causal_conv_khat(kern, m)
+        elif khat.shape[-2] != m:
+            raise ValueError(f"kern_hat was built for m={khat.shape[-2]} meta-bins "
+                             f"but this call needs m={m}")
+        prods.append(ehat * khat.mT)
+    lo = min(r0 for r0, _ in windows)
+    hi = max(r0 + cnt for r0, cnt in windows)
+    out = torch.fft.ifft(torch.stack(prods), dim=-1)[..., lo:hi]
+    return [out[i, ..., r0 - lo:r0 - lo + cnt].mT for i, (r0, cnt) in enumerate(windows)]
+
+
 def generate_sinusoid(num_samples: int, freq: float, sample_rate: float,
                       gain: float) -> np.ndarray:
     """Test-signal generator mirroring ``examples/util/mod.rs:7-19`` /

@@ -8,10 +8,10 @@ The stream is the aligned two-stage decomposition
   (:mod:`.farm`) that share the head's ring.  With the big tail present the
   period is exactly the head's segment count ``n``, so tail0's one-period
   delay is a shift of ``n`` segments, and one combined ``2n``-segment
-  kernel (:func:`_combined_head_kernel`) gives ``head + delay_1(tail0)`` in
-  one causal convolution along the block axis (:func:`..ops.fft.
-  causal_conv_time`, ``torch.fft``).  The ``n - 1`` input spectra before
-  the ring are the state's own ``hist`` field.
+  kernel (:func:`..models.two_stage.combined_head_kernel`) gives ``head +
+  delay_1(tail0)`` in one causal convolution along the block axis
+  (:func:`..ops.fft.causal_conv_time`, ``torch.fft``).  The ``n - 1`` input
+  spectra before the ring are the state's own ``hist`` field.
 * **big tail** (block ``tb``): a fused ring and table of ``[N, V, tb+1]``
   bins (bf16 pairs with ``tail_dtype=torch.bfloat16``) stepped by kernel B5
   (:mod:`..ops.cuda_farm_mac`) with a phase scalar ``q``: the ring rows stay
@@ -53,7 +53,8 @@ from typing import Callable
 import torch
 
 from ..models import two_stage, uniform
-from ..models.two_stage import TwoStageConfig, TwoStageState, compute_tail_block_size
+from ..models.two_stage import (TwoStageConfig, TwoStageState, combined_head_kernel,
+                                compute_tail_block_size)
 from ..ops import cuda_farm_mac
 from ..ops.cuda_engine import to_bf16
 from ..ops.fft import (causal_conv_khat, causal_conv_time, irdft_block,
@@ -354,21 +355,13 @@ def _tail_corr_phased_fused(cfg: uniform.UniformConfig, tail: TailState,
     return y
 
 
-def _combined_head_kernel(st_h: uniform.UniformState,
-                          st_t0: uniform.UniformState) -> torch.Tensor:
-    """The combined head+tail0 table ``[V, 2n, B+1]``: segment ``n + j`` is
-    tail0's segment ``j``, applied ``n`` blocks (one period) later
-    (``_combined_head_kernel``, ``fft_convolution_tpu/parallel/farm2.py:837``)."""
-    return torch.cat([st_h.segments_ir, st_t0.segments_ir], dim=1)
-
-
 def farm2_head_khat(cfg: TwoStageConfig, state: Farm2State, t: int) -> torch.Tensor:
     """The combined head kernel's meta-spectra for ``t``-block calls
     (``farm2_head_khat``, ``fft_convolution_tpu/parallel/farm2.py:855``):
     input-independent between IR updates; valid for any call length with
     the same ``npo2(2n - 1 + t)``."""
     m = next_power_of_two(2 * cfg.head.seg_count - 1 + t)
-    return causal_conv_khat(_combined_head_kernel(state.head, state.tail0), m)
+    return causal_conv_khat(combined_head_kernel(state.head, state.tail0), m)
 
 
 def farm2_head_khat_voices(cfg: TwoStageConfig, state: Farm2State, t: int,
@@ -414,9 +407,9 @@ def _heads_fused(cfg: TwoStageConfig, st_h: uniform.UniformState,
     n, b, p = cfg.head.seg_count, cfg.head_block, cfg.period
     v, t = vx.shape[:2]
     specs = rdft_block(vx, 2 * b)                          # [V, T, B+1]
-    ring = st_h.segments.roll(-(st_h.current + 1), dims=1).flip(1)  # blocks -n..-1
+    ring = uniform.ring_window(st_h.segments, st_h.current)  # blocks -n..-1
     ext = torch.cat([hist, ring, specs], dim=1)            # [V, 2n-1+T, B+1]
-    conv = causal_conv_time(ext, _combined_head_kernel(st_h, st_t0), t, kern_hat=khat)
+    conv = causal_conv_time(ext, combined_head_kernel(st_h, st_t0), t, kern_hat=khat)
     if bool(suppress.any()):
         ext_w = torch.cat([torch.zeros_like(ring[:, 1:]), ring], dim=1)  # [V, 2n-1, B+1]
         w = causal_conv_time(ext_w, st_t0.segments_ir, p, m=2 * n)
@@ -435,18 +428,21 @@ def farm2_stream(cfg: TwoStageConfig, state: Farm2State | TwoStageState,
     phased step (:func:`..ops.cuda_farm_mac.phased_step`,
     ``phased_step_packed`` for bf16 storage, or ``phased_step_plain``).
     ``head_khat``: :func:`farm2_head_khat` for this call's meta length; for
-    the short-IR farm, :func:`..models.two_stage.stream_khats` of the
+    the short-IR farm, :func:`..models.two_stage.small_stream_khats` of the
     voice-stacked state for this ``T``, which sends both small stages to
     the uniform conv core (their rings are full and clean: every update is
-    at full capacity)."""
+    at full capacity).  The short-IR farm streams its small stages apart,
+    as the JAX farm does with its own small-stream core
+    (``fft_convolution_tpu/parallel/farm2.py:1075``), so the fused front
+    end never runs here."""
     b, tb, p = cfg.head_block, cfg.tail_block, cfg.period
     t, v = blocks.shape[:2]
     q = t // p
     if q * p != t or q == 0:
         raise ValueError(f"T={t} must be a positive multiple of the period {p}")
     if cfg.tail is None:
-        return two_stage.process_stream_aligned(cfg, state, blocks.transpose(0, 1),
-                                                head_khat).transpose(0, 1).contiguous()
+        return two_stage.process_stream_aligned(cfg, state, blocks.transpose(0, 1), head_khat,
+                                                fuse_small=False).transpose(0, 1).contiguous()
     vx = blocks.transpose(0, 1)                            # [V, T, B]
     y, state.hist = _heads_fused(cfg, state.head, state.tail0, vx, state.hist,
                                  state.suppress, head_khat)

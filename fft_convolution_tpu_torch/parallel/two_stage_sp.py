@@ -19,7 +19,10 @@ three-stream decomposition with the big tail's stream replaced:
     y = head(x) + delay_1_period(tail0(x)) + delay_2_periods(tail_sp(x))
 
 so the collective runs once every ``period`` head blocks, and each rank's
-share of the tail's memory falls as ``1 / |sp|``.
+share of the tail's memory falls as ``1 / |sp|``.  Head and tail0 take the
+fused front end under its host-int guard, as the JAX engine's aligned
+stream does (``fft_convolution_tpu/parallel/two_stage_sp.py:123``); the
+CHRONO tail history stays the single-device wrapper's.
 """
 
 from __future__ import annotations
@@ -80,8 +83,8 @@ def stream_aligned(cfg: two_stage.TwoStageConfig, mesh, state: two_stage.TwoStag
     """Period-aligned stream ``blocks [T, head_block] -> y`` with the main
     tail stepped through :func:`.partition.step`, one all-reduce a period
     (``_raw_stream_aligned``,
-    ``fft_convolution_tpu/parallel/two_stage_sp.py:113``).  ``khats``: the
-    head and tail0 entries of :func:`..models.two_stage.stream_khats`."""
+    ``fft_convolution_tpu/parallel/two_stage_sp.py:113``).  ``khats``:
+    :func:`..models.two_stage.stream_khats` without the tail entry."""
     def big_stream(tail_cfg, tail_state, rows):
         return partition.stream(tail_cfg, mesh, tail_state, rows)
 
@@ -124,7 +127,8 @@ class ShardedTwoStageConvolver:
         self.device = mesh_device(self.mesh)
         self.cfg, self.state = init(self.mesh, response, block_size, max_response_length)
         self._declared_max = max_response_length
-        # head and tail0 meta-spectra per aligned call length T
+        # head and tail0 meta-spectra (fused and separate) per aligned call
+        # length T
         self._khat_cache: dict[int, dict] = {}
 
     def process(self, input) -> torch.Tensor:
@@ -139,9 +143,8 @@ class ShardedTwoStageConvolver:
             return x
         t = x.shape[0] // self.cfg.head_block
         if t not in self._khat_cache:
-            self._khat_cache[t] = {
-                "head": uniform.stream_khat(self.cfg.head, self.state.head, t),
-                "t0": uniform.stream_khat(self.cfg.tail0, self.state.tail0, t)}
+            self._khat_cache[t] = two_stage.stream_khats(self.cfg, self.state, t,
+                                                         want_tail=False)
         return stream_aligned(self.cfg, self.mesh, self.state, x.view(t, -1),
                               self._khat_cache[t]).reshape(-1)
 

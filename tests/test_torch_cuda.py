@@ -1,6 +1,7 @@
 """Kernels B1, B1p, B2, B3, B4 and B5 on the card against their plain
 PyTorch versions; B1-B3 also for their arrival counters (one launch a
-step); the mesh forms on two gloo ranks sharing the card.
+step); the mesh forms on two gloo ranks sharing the card; the flagship
+batched two-stage call (fused front end, CHRONO tail) on the card.
 
 These need an NVIDIA card with nvcc (``sm_90a``) and skip elsewhere.  The
 repository's ``tests/conftest.py`` imports JAX; where JAX is not installed,
@@ -563,3 +564,34 @@ def test_sharded_fdl_two_ranks_match_fft_convolver(dev):
     for res in run_ranks(_sp_rank, 2, ir, short, x, device="cuda", timeout=300):
         assert res["rows"] == 12
         _close(res["y"], want, "sharded vs single-device")
+
+
+def test_two_stage_flagship_aligned_fused_chrono_on_card(dev):
+    """The flagship aligned call (block 128, a 10 s 48 kHz IR, T = 3968) on
+    the card over five calls with the state carried: the fused front end
+    (SEPARATE form) and the CHRONO big tail each once a call, the ring core
+    never, the history compacted on the fourth call; against a float64
+    convolution (1e-4, the on-card gate) and the same wrapper on the CPU."""
+    from fft_convolution_tpu_torch import TwoStageFFTConvolver
+    from fft_convolution_tpu_torch.models import two_stage
+
+    rng = np.random.default_rng(0)
+    ir = (rng.standard_normal(10 * 48000) * 0.01).astype(np.float32)
+    x = rng.standard_normal((5, 3968 * 128)).astype(np.float32)
+    card = TwoStageFFTConvolver(ir, 128, len(ir), device=dev)
+    assert not two_stage.fused_uses_multi(card.cfg, 3968)
+    cores = (uniform._stream_conv, two_stage._fused_small_streams, uniform.stream_conv_chrono)
+    before, ys, pos = [c.calls for c in cores], [], []
+    for xc in x:
+        ys.append(card.process(torch.from_numpy(xc).to(dev)))
+        pos.append(card._tail_pos)
+    assert [c.calls - n for c, n in zip(cores, before)] == [0, 5, 5]
+    assert pos == [118, 180, 242, 118, 180]
+    y = torch.cat(ys)
+    host = TwoStageFFTConvolver(ir, 128, len(ir), device="cpu")
+    _close(y.cpu(), torch.cat([host.process(xc) for xc in x]), "card vs CPU")
+    sig, h = torch.from_numpy(x.reshape(-1)).to(dev), torch.from_numpy(ir).to(dev)
+    nfft = 1 << (sig.numel() + h.numel() - 2).bit_length()
+    ref = torch.fft.irfft(torch.fft.rfft(sig.double(), nfft) * torch.fft.rfft(h.double(), nfft),
+                          nfft)[:sig.numel()]
+    assert float((y.double() - ref).abs().max()) <= 1e-4

@@ -120,3 +120,34 @@ def test_fdl_mac_after_shrinking_update():
             rng.standard_normal(b).astype(np.float32)))
         ts = interop.uniform_state(js)
     assert tspectral.fdl_mac(ts.segments, ts.segments_ir, 0, 1).abs().max() == 0
+
+
+def test_causal_conv_multi_matches_per_kernel_calls():
+    """``causal_conv_multi`` (one forward transform, the products stacked
+    under one inverse) equals per-kernel ``causal_conv_time`` calls, with
+    raw kernels and with precomputed meta-spectra, and the JAX package's
+    ``causal_conv_multi`` on the same spectra (``tests/test_meta_dft.py:109``)."""
+    rng = np.random.default_rng(93)
+    b, n, t = 128, 16, 48
+    m = 128  # >= t + 2n - 1, a power of two
+    ext = torch.fft.rfft(torch.from_numpy(
+        rng.standard_normal((n + t, 2 * b)).astype(np.float32) * 0.3))
+    kerns = [torch.fft.rfft(torch.from_numpy(rng.standard_normal((rows, 2 * b))
+                                             .astype(np.float32))) for rows in (2 * n, n)]
+    windows = [(n, t), (0, n + t)]
+    multi = tfft.causal_conv_multi(ext, kerns, windows, m=m)
+    for kern, (r0, cnt), got in zip(kerns, windows, multi):
+        assert got.shape == (cnt, b + 1)
+        want = tfft.causal_conv_time(ext, kern, cnt, m=m, row0=r0)
+        _assert_spec_close(got, want, f"window {(r0, cnt)}")
+    hats = [tfft.causal_conv_khat(k, m) for k in kerns]
+    for a, c in zip(multi, tfft.causal_conv_multi(ext, [None, None], windows, m=m,
+                                                   kern_hats=hats)):
+        assert torch.equal(a, c)
+    jmulti = jfft.causal_conv_multi(jnp.asarray(tfft.complex_to_packed(ext).numpy()),
+                                    [jnp.asarray(tfft.complex_to_packed(k).numpy())
+                                     for k in kerns], windows, m=m)
+    for got, want in zip(multi, jmulti):
+        _assert_spec_close(got, _c(want), "vs JAX")
+    with pytest.raises(ValueError, match="meta-bins"):
+        tfft.causal_conv_multi(ext, [None], [(0, 4)], m=2 * m, kern_hats=hats[:1])

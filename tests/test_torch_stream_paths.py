@@ -1,21 +1,23 @@
 """The port's batched streams against the JAX package's and against the
 port's own sequential block loop, on the same numpy-seeded inputs — the
-port of ``tests/test_stream_paths.py`` for the one stream core the port
-keeps (``models/uniform._stream_conv``, a causal convolution along the
-block axis on ``torch.fft``).
+port of ``tests/test_stream_paths.py`` for the stream cores the port keeps:
+the ring's conv core (``models/uniform._stream_conv``, a causal
+convolution along the block axis on ``torch.fft``), the fused head+tail0
+front end (``models/two_stage._fused_small_streams``) and the CHRONO big
+tail (``models/uniform.stream_conv_chrono``; its own tests are in
+``test_torch_chrono.py``).
 
 Outputs are held to 1e-5 abs and exit states (ring, head, accumulator,
 overlap, period buffers) to 1e-4, as the JAX tests hold theirs; every test
-also counts the calls of the conv core, so a silent fall into the block
-loop fails.
+also counts the calls of each core, so a silent fall into another path
+fails.
 
 Left out, with what they test: ``:113`` and ``:148`` (the correlation
 cores), ``:348`` (the eight-core decision tree), ``:395`` (``irdft_pair``,
-which exists for a planes-outer layout), and ``:414``, ``:462`` and
-``:506`` (the fused head+tail0 front end and the host shadow that elides
-its guard).  The port runs none of them: its aligned path runs the three
-stages as separate streams, the JAX package's own form whenever its
-clean-ring guard fails.
+which exists for a planes-outer layout) and ``:462`` (``assume_clean_small``,
+the trace-time elision of the fused front end's guard; the port's guard is
+host ints and costs nothing, and the elision's missing ``current`` check is
+ROADMAP C1).
 """
 
 import functools
@@ -68,6 +70,21 @@ def _two_state_close(got: ttwo.TwoStageState, want: ttwo.TwoStageState, atol=STA
     assert (got.tail_fill, got.precalc_pos) == (want.tail_fill, want.precalc_pos)
 
 
+def _two_state_equivalent(got: ttwo.TwoStageState, want: ttwo.TwoStageState,
+                          atol=STATE_TOL, msg=""):
+    """:func:`_two_state_close` with the big tail's ring compared by delay:
+    a CHRONO round trip leaves the same history under another ring head."""
+    for stage in ("head", "tail0"):
+        _uni_state_close(getattr(got, stage), getattr(want, stage), atol, f"{msg} {stage}")
+    for f in ("pre_multiplied", "overlap", "input_buffer"):
+        _close(getattr(got.tail, f), getattr(want.tail, f), atol, f"{msg} tail {f}")
+    _close(tuni.ring_window(got.tail.segments, got.tail.current)[1:],
+           tuni.ring_window(want.tail.segments, want.tail.current)[1:], atol, f"{msg} tail ring")
+    for f in ttwo._BUFFERS:
+        _close(getattr(got, f), getattr(want, f), atol, f"{msg} {f}")
+    assert (got.tail_fill, got.precalc_pos) == (want.tail_fill, want.precalc_pos)
+
+
 def _uni_blocks(cfg, state, x):
     """The port's sequential path: one process_block per block."""
     return torch.stack([tuni.process_block(cfg, state, xb) for xb in x])
@@ -82,6 +99,17 @@ def _conv_calls(fn):
     before = tuni._stream_conv.calls
     out = fn()
     return out, tuni._stream_conv.calls - before
+
+
+_CORES = (tuni._stream_conv, ttwo._fused_small_streams, tuni.stream_conv_chrono)
+
+
+def _core_calls(fn):
+    """``fn()`` and its calls of each stream core: ``(ring conv core, fused
+    head+tail0 front end, CHRONO tail)``."""
+    before = [c.calls for c in _CORES]
+    out = fn()
+    return out, tuple(c.calls - b for c, b in zip(_CORES, before))
 
 
 def _thresh_q(cfg):
@@ -143,8 +171,8 @@ def test_two_stage_aligned_matches_scan():
 
     cfg, _ = ttwo.init(ir, 64, len(ir))
     st, st_seq = interop.two_stage_state(js), interop.two_stage_state(js)
-    y, calls = _conv_calls(lambda: ttwo.process_stream_aligned(cfg, st, _x(x)))
-    assert calls == 2  # head and tail0 (T >= 8); the q = 5 big tail is sequential
+    y, calls = _core_calls(lambda: ttwo.process_stream_aligned(cfg, st, _x(x)))
+    assert calls == (0, 1, 0)  # head and tail0 fused; the q = 5 big tail is sequential
     y_seq = _two_blocks(cfg, st_seq, _x(x))
     _close(y, y_fast, OUT_TOL, "vs JAX")
     _close(y, y_seq, OUT_TOL, "vs the block loop")
@@ -165,11 +193,10 @@ def test_two_stage_aligned_single_period_and_handoff():
     cfg, _ = ttwo.init(ir, 64, len(ir))
     st, st_seq = interop.two_stage_state(js), interop.two_stage_state(js)
     khats = ttwo.stream_khats(cfg, st, p)
-    before = tuni._stream_conv.calls
-    ys = [ttwo.process_stream_aligned(cfg, st, _x(x[:p]), khats),
-          ttwo.process_stream_aligned(cfg, st, _x(x[p:2 * p]), khats),
-          _two_blocks(cfg, st, _x(x[2 * p:]))]
-    assert tuni._stream_conv.calls - before == 4
+    ys, calls = _core_calls(lambda: [ttwo.process_stream_aligned(cfg, st, _x(x[:p]), khats),
+                                     ttwo.process_stream_aligned(cfg, st, _x(x[p:2 * p]), khats),
+                                     _two_blocks(cfg, st, _x(x[2 * p:]))])
+    assert calls == (0, 2, 0)  # head and tail0 fused a call
     y = torch.cat(ys)
     _close(y, y_ref, OUT_TOL, "vs the JAX scan")
     _close(y, _two_blocks(cfg, st_seq, _x(x)), OUT_TOL, "vs the block loop")
@@ -188,8 +215,8 @@ def test_two_stage_wrapper_uses_aligned_path():
     n = b.cfg.tail_block * 4
     x = generate_sinusoid(n, 1300.0, 44100.0, 0.1)
     y_a, calls_a = _conv_calls(lambda: a.process(x))
-    y_b, calls_b = _conv_calls(lambda: b.process(x))  # n % tail_block == 0: aligned
-    assert (calls_a, calls_b) == (1, 2)
+    y_b, calls_b = _core_calls(lambda: b.process(x))  # n % tail_block == 0: aligned
+    assert (calls_a, calls_b) == (1, (0, 1, 1))
     _close(y_b, y_a, OUT_TOL)
     _close(y_b, J.TwoStageFFTConvolver(response, block, len(response)).process(x), OUT_TOL,
            "vs the JAX wrapper")
@@ -302,9 +329,9 @@ def test_two_stage_tail_khat_conv_core_matches():
     x1 = _x(rng.standard_normal((t, 64)))
     x2 = _x(rng.standard_normal((t, 64)))
     sa, sb = state.clone(), state.clone()
-    (ya1, ya2), calls = _conv_calls(
+    (ya1, ya2), calls = _core_calls(
         lambda: [ttwo.process_stream_aligned(cfg, sa, x, khats=khs) for x in (x1, x2)])
-    assert calls == 6
+    assert calls == (2, 2, 0)  # a call: head and tail0 fused, the big tail on the ring core
     yb1 = ttwo.process_stream_aligned(cfg, sb, x1)
     yb2 = ttwo.process_stream_aligned(cfg, sb, x2)
     scale = max(float(yb2.abs().max()), 1.0)
@@ -326,7 +353,8 @@ def test_two_stage_tail_khat_conv_core_matches():
 def test_two_stage_wrapper_long_call_conv_tail():
     """One process() call long enough to send the big tail to the conv core
     matches the uniform engine end to end; the wrapper's cache holds the
-    tail's meta-spectra for that length."""
+    tail's meta-spectra for that length (the CHRONO tail: the wrapper takes
+    it whenever the call fits its history)."""
     rng = np.random.default_rng(65)
     ir = rng.standard_normal(12000).astype(np.float32) * 0.05
     b = T.TwoStageFFTConvolver(ir, 64, len(ir), device="cpu")
@@ -335,9 +363,9 @@ def test_two_stage_wrapper_long_call_conv_tail():
     x = rng.standard_normal(n).astype(np.float32) * 0.3
     a = T.FFTConvolver(ir, 32, len(ir), device="cpu")
     y_a = a.process(x)
-    y_b, calls = _conv_calls(lambda: b.process(x))
-    assert calls == 3
-    assert "tail" in b._khat_cache[q * b.cfg.period]
+    y_b, calls = _core_calls(lambda: b.process(x))
+    assert calls == (0, 1, 1)
+    assert "tail" in b._khat_cache[(q * b.cfg.period, True)]
     _close(y_b, y_a, 1e-5 * max(float(y_a.abs().max()), 1.0))
 
 
@@ -367,8 +395,10 @@ def test_two_stage_shrink_then_full_update_aligned_output():
     assert ours.state.tail_fill == 0
     assert ours.state.head.current != ours.state.tail0.current
     seq = ours.clone()
-    y, calls = _conv_calls(lambda: ours.process(x3))
-    assert calls == 2
+    y, calls = _core_calls(lambda: ours.process(x3))
+    # the currents differ, so the fused front end's guard fails: head and
+    # tail0 run apart on the ring core; the full tail ring takes CHRONO
+    assert calls == (2, 0, 1)
     _close(y, seq._process_blocks(_x(x3)), OUT_TOL, "vs the block loop")
     _close(y, theirs._process_chunked(x3), OUT_TOL, "vs the JAX sequential path")
     assert x3.size // b == 3 * p
@@ -428,7 +458,7 @@ def test_two_stage_khat_cache_coherence():
     tb = c.cfg.tail_block
     x = rng.standard_normal(6 * tb).astype(np.float32)
     c.process(x[:2 * tb])
-    assert list(c._khat_cache) == [2 * c.cfg.period]
+    assert list(c._khat_cache) == [(2 * c.cfg.period, True)]
     snap = c.snapshot()
     twin = c.clone()
     twin.update_extension(ir2)
@@ -495,3 +525,154 @@ def test_farm_stream_matches_jax(shrunk):
         for i, e in enumerate(engines):
             _close(y[:, i].reshape(-1), e.process(x[call][:, i].reshape(-1)), OUT_TOL,
                    f"call {call} voice {i}")
+
+
+# ---- the fused head+tail0 front end ------------------------------------------------
+
+def test_fused_separate_form_matches_multi_and_scan(monkeypatch):
+    """The fused front end's two side-pass forms (MULTI, one shared
+    transform; SEPARATE, two small convolutions; ``fused_uses_multi`` routes
+    on T) agree with each other and with the JAX package's sequential scan
+    over two chained calls, exit state included (``tests/test_stream_paths.
+    py:414``)."""
+    rng = np.random.default_rng(51)
+    b = 64
+    ir_l = rng.standard_normal(60000).astype(np.float32) * 0.02
+    jcfg, js = jtwo.init(ir_l, b, len(ir_l))
+    cfg, _ = ttwo.init(ir_l, b, len(ir_l))
+    tt = 3 * cfg.period
+    xs = rng.standard_normal((tt, b)).astype(np.float32) * 0.3
+    x2 = rng.standard_normal((tt, b)).astype(np.float32) * 0.3
+    assert ttwo.fused_uses_multi(cfg, tt)
+
+    def run(max_rows):
+        monkeypatch.setattr(ttwo, "FUSED_MULTI_MAX_ROWS", max_rows)
+        st = interop.two_stage_state(js)
+        khs = ttwo.stream_khats(cfg, st, tt)
+        assert ("t0f" in khs, "rec" in khs) == ((True, False) if max_rows else (False, True))
+        ys, calls = _core_calls(
+            lambda: [ttwo.process_stream_aligned(cfg, st, _x(x), khs) for x in (xs, x2)])
+        assert calls == (0, 2, 0)  # the q = 3 big tail runs the block loop
+        return ys, st
+
+    multi, st_multi = run(1 << 30)
+    sep, st_sep = run(0)
+    for a, c in zip(multi, sep):
+        _close(c, a, 2e-6)
+    scan = jax.jit(functools.partial(jtwo.process_stream, jcfg))
+    js1, yr1 = scan(js, jnp.asarray(xs))
+    js2, yr2 = scan(js1, jnp.asarray(x2))
+    scale = max(float(jnp.abs(yr1).max()), 1.0)
+    for ys, st, form in ((multi, st_multi, "MULTI"), (sep, st_sep, "SEPARATE")):
+        _close(ys[0], yr1, OUT_TOL * scale, f"{form} call 1 vs the JAX scan")
+        _close(ys[1], yr2, OUT_TOL * scale, f"{form} call 2 vs the JAX scan")
+        _two_state_close(st, interop.two_stage_state(js2), msg=f"{form} vs the JAX scan")
+
+
+@pytest.mark.parametrize("q", [1, 3])
+@pytest.mark.parametrize("form", ["multi", "separate"])
+def test_fused_front_end_exit_state_matches_jax(monkeypatch, form, q):
+    """The port's fused front end against the JAX package's
+    ``two_stage._fused_small_streams`` called directly, in one form each,
+    from a mid-stream state whose ring head is not 0: output, both stages'
+    exit states (ring, ``current``, accumulators, overlaps) and tail0's
+    period buffers."""
+    rng = np.random.default_rng(71)
+    b = 64
+    ir = rng.standard_normal(12000).astype(np.float32) * 0.05
+    jcfg, js = jtwo.init(ir, b, len(ir))
+    p = jcfg.period
+    js, _ = jax.jit(functools.partial(jtwo.process_stream, jcfg))(
+        js, jnp.asarray(rng.standard_normal((2 * p + 5, b)).astype(np.float32)))
+    max_rows = 1 << 30 if form == "multi" else 0
+    monkeypatch.setattr(jtwo, "FUSED_MULTI_MAX_ROWS", max_rows)
+    monkeypatch.setattr(ttwo, "FUSED_MULTI_MAX_ROWS", max_rows)
+    x = rng.standard_normal((q * p, b)).astype(np.float32)
+    jh, jt0, yj, jprecalc0, joutput0 = jax.jit(
+        functools.partial(jtwo._fused_small_streams, jcfg))(
+        js.head, js.tail0, jnp.asarray(x), js.tail_precalc0, None)
+
+    cfg, _ = ttwo.init(ir, b, len(ir))
+    st = interop.two_stage_state(js)
+    assert st.head.current == st.tail0.current != 0
+    khats = ttwo.stream_khats(cfg, st, q * p)
+    y, calls = _core_calls(lambda: ttwo._fused_small_streams(cfg, st, _x(x), khats))
+    assert calls == (0, 1, 0)
+    _close(y, yj, OUT_TOL, "y")
+    _uni_state_close(st.head, interop.uniform_state(jh), msg="head")
+    _uni_state_close(st.tail0, interop.uniform_state(jt0), msg="tail0")
+    _close(st.tail_precalc0, jprecalc0, STATE_TOL, "tail_precalc0")
+    _close(st.tail_output0, joutput0, STATE_TOL, "tail_output0")
+
+
+def test_wrapper_fused_guard_lifecycle():
+    """The fused front end's host-int guard over the wrapper's life
+    (``tests/test_stream_paths.py:506``): fused from init; apart after a
+    shrinking update; still apart after a full update that leaves the two
+    rings' heads unequal (ROADMAP C1); fused again once the heads agree
+    (after ``reset``, or a shrink and full update with no call between).
+    Every aligned call matches the same call replayed through the port's
+    sub-block path from a snapshot and the JAX package's sequential path."""
+    rng = np.random.default_rng(32)
+    b = 64
+    ir = (rng.standard_normal(12000) * 0.01).astype(np.float32)
+    ours = T.TwoStageFFTConvolver(ir, b, len(ir), device="cpu")
+    theirs = J.TwoStageFFTConvolver(ir, b, len(ir))
+    tb = ours.cfg.tail_block
+    short = ir[: tb // 2 + 3 * b + 5]  # head active 12 of 16 segments, tail0 none
+
+    def aligned(fused: int, what: str):
+        x = rng.standard_normal(2 * tb).astype(np.float32)
+        snap = ours.snapshot()
+        y, calls = _core_calls(lambda: ours.process(x))
+        assert calls[1] == fused, what
+        after = ours.snapshot()
+        ours.restore(snap)
+        _close(y, ours._process_chunked(_x(x)), OUT_TOL, f"{what}: vs the sub-block path")
+        _two_state_equivalent(ours.state, after[0], msg=f"{what}: exit state")
+        _close(y, theirs._process_chunked(x), OUT_TOL, f"{what}: vs the JAX sequential path")
+
+    aligned(1, "from init")
+    for c in (ours, theirs):
+        c.update_extension(short)
+    aligned(0, "shrunk")
+    for c in (ours, theirs):
+        c.update_extension(ir)
+    assert ours.state.head.current != ours.state.tail0.current
+    aligned(0, "full update, heads unequal")
+    for c in (ours, theirs):
+        c.reset()
+    aligned(1, "after reset")
+    for c in (ours, theirs):
+        c.update_extension(short)
+        c.update_extension(ir)
+    assert ours.state.head.current == ours.state.tail0.current
+    aligned(1, "shrink and full update with no call between")
+
+
+def test_fused_after_update_single_period_calls():
+    """``update_extension`` zeroes tail0's overlap; the fused front end's
+    exit state takes that carried overlap as block 0's seam, so one-period
+    aligned calls right after an update, and the call after them, match the
+    sub-block path and the JAX package's sequential path.  (The JAX
+    package's fused form rebuilds that seam from the history, and its next
+    period's first block then differs; ROADMAP C3.)"""
+    rng = np.random.default_rng(5)
+    b = 64
+    ir = (rng.standard_normal(12000) * 0.05).astype(np.float32)
+    ir2 = (rng.standard_normal(12000) * 0.05).astype(np.float32)
+    ours = T.TwoStageFFTConvolver(ir, b, len(ir), device="cpu")
+    theirs = J.TwoStageFFTConvolver(ir, b, len(ir))
+    tb = ours.cfg.tail_block
+    x0 = rng.standard_normal(2 * tb).astype(np.float32)
+    x = rng.standard_normal(3 * tb).astype(np.float32)
+    for c in (ours, theirs):
+        c.process(x0)
+        c.update_extension(ir2)
+    snap = ours.snapshot()
+    y, calls = _core_calls(lambda: torch.cat([ours.process(x[i * tb:(i + 1) * tb])
+                                              for i in range(3)]))
+    assert calls[1] == 3
+    ours.restore(snap)
+    _close(y, ours._process_chunked(_x(x)), OUT_TOL, "vs the sub-block path")
+    _close(y, theirs._process_chunked(x), OUT_TOL, "vs the JAX sequential path")
