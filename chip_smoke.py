@@ -6,7 +6,14 @@ Run from the repository root on a machine with one NVIDIA H100::
 
 Phases (any failure exits non-zero; nothing is caught).  Every path is
 driven with every launch counter set to 0 just before it and read just
-after; the flagship shape is block 128 and a 10 s 48 kHz IR.
+after; the flagship shape is block 128 and a 10 s 48 kHz IR.  Every bound
+comes from the port's cost model, ``fft_convolution_tpu_torch/utils/
+roofline.py`` (:func:`roofline` loads it by path; the card's peaks from
+``roofline.peaks``, which fails on a card it does not know): the least
+time the card could take for the work of the function a path computes,
+whatever implements it.  Each share is that bound over a measured time,
+printed with the card's name and power limit and gated <= 1 (a share above
+1 means the count is wrong; :func:`shares`).
 
 1. build the hand-written kernels (one nvcc per source, ``sm_90a``) and
    print the card;
@@ -55,14 +62,19 @@ after; the flagship shape is block 128 and a 10 s 48 kHz IR.
 13. latency of 2- and 8-period farm calls, both storages, kernel path
     against plain path, with real-time voices (voices x audio seconds /
     wall seconds), and the time of the B5 step alone against its plain
-    version (recorded, not gated);
+    version (recorded, not gated); the step's share of its bound
+    (``roofline.farm_tail_step_cost``) and each call's (``farm_cost``, the
+    kernel path's best event median), gated;
 14. a ``torch.profiler`` window over 256 warm steps of each per-block kernel
     (B1, B1p, B2, B3) and 24 warm 64-block calls of B4 and B4p, each kernel
     wrapper called directly on its wrapper's operands: device microseconds
     per step (CUDA kernel events only), the same by CUDA kernel name (B4's
     forward, MAC and finish apart), and CUDA kernels per step, gated to 1
     for the one-launch kernels B1, B1p, B2 and B3 and to 3 (three kernels,
-    once each) for B4 and B4p;
+    once each) for B4 and B4p; each kernel's share of its bound in device
+    time (``roofline.stream_conv_cost`` for B1, B1p, B4, B4p,
+    ``two_stage_step_cost`` for B2, ``crossfade_stream_cost`` for B3;
+    gated);
 15. the batched streams (``torch.fft`` on the card; no hand-written kernel
     lies on them, so every launch counter must stay 0) at the JAX package's
     benchmark shapes, uncut: the flagship ``TwoStageFFTConvolver`` (block
@@ -81,15 +93,20 @@ after; the flagship shape is block 128 and a 10 s 48 kHz IR.
     block loop; xRT (audio seconds over the median CUDA-event seconds of a
     warm call, meta-spectra cached) of the batched call and of the block
     loop (timed over at most 640 blocks and scaled); the CUDA kernels and
-    device microseconds of one call (``torch.profiler``).  At each two-stage
-    shape, printed only: the same call in each form of
-    :data:`TWO_STAGE_FORMS` (fused front end and CHRONO tail on or off, and
-    the fused side passes in the form ``fused_uses_multi`` does not pick),
-    event ms, device microseconds and CUDA kernels each, from one state and
-    input in one run.  Then, printed only: the conv core at B4's shape (30 s
-    IR, T = 64) beside B4's device time from phase 14, and cuFFT along dim
-    -2 against the same rows laid out along dim -1.  A ``{"batched_streams":
-    ...}`` line records it all;
+    device microseconds of one call (``torch.profiler``); the call's bound
+    (``roofline.two_stage_stream_cost``, ``stream_conv_cost``,
+    ``crossfade_stream_cost``, ``farm_cost``) and its shares of the device
+    microseconds and of the event ms (gated).  At each two-stage shape,
+    printed only: the same call in each form of :data:`TWO_STAGE_FORMS`
+    (fused front end and CHRONO tail on or off, and the fused side passes
+    in the form ``fused_uses_multi`` does not pick), event ms, device
+    microseconds and CUDA kernels each, from one state and input in one
+    run, each with its two shares of the shape's one bound (gated).  Then
+    the conv core at B4's shape (30 s IR padded to B4's 11264 segments, T
+    = 64), printed, beside B4's device time from phase 14: both costed by
+    ``stream_conv_cost`` (the two costs gated equal) and both shares gated;
+    and cuFFT along dim -2 against the same rows laid out along dim -1.  A
+    ``{"batched_streams": ...}`` line records it all;
 16. the host runtime (``runtime/``, ``utils/``, ``examples/``): the native
     library built with g++; ``HostEngine`` (numpy blocks in and out) over
     B1, B2 and B3 for 512 blocks against the same wrapper fed card tensors
@@ -98,7 +115,9 @@ after; the flagship shape is block 128 and a 10 s 48 kHz IR.
     (median gated below the 2.667 ms block; p99 and max printed) beside the
     card-tensor latency of phases 5 and 9, B2's split into the blocks that
     end a period (the big tail runs there) and the others, with the big-tail
-    step's CUDA-event time alone; ``StreamingConvolver`` over the
+    step's CUDA-event time alone and its share of its bound
+    (``roofline.stream_conv_cost`` at the tail block, gated);
+    ``StreamingConvolver`` over the
     flagship ``TwoStageFFTConvolver`` fed 441-sample pushes, then a push
     back to the block boundary and a block-aligned push of three periods
     (the batched route: the fused front end and the CHRONO tail must run
@@ -140,7 +159,9 @@ The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches, error and times: the
 kernel and plain paths' best CUDA-event medians (``ms``, ``plain_ms``), the
 least time the card could take for the kernel's work from its shapes
-(``bound_ms``, ``bound_us``, ``bound_by``; formulas in :func:`bound`),
+(``bound_ms``, ``bound_us``, ``bound_by``, ``l2_resident``: the roofline
+module's) and its ``share`` of the device time (B5: of the step alone;
+``call_bound_us`` and ``call_share``: the 8-period call's),
 ``library_ms`` (null: no single PyTorch call computes a step), B5's and
 B5p's ``dp_mesh`` (phase 17: ranks, launches a rank, error, call ms a
 rank), and for B1-B4
@@ -152,9 +173,10 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import importlib.util
 import json
-import math
 import pathlib
 import statistics
 import subprocess
@@ -174,6 +196,7 @@ TIMED_BLOCKS, WARMUP_BLOCKS = 512, 64
 PACKED_REL_TOL = 5e-3      # bf16 storage, of the output scale (bench.py:421-424)
 XFADE_BLOCKS, XFADE_UPDATE, XFADE_FADE = 192, 64, 4 * BLOCK
 STREAM_SECONDS, STREAM_CALL, STREAM_CALLS = 30, 64, 180  # 11520 blocks > 11264
+STREAM_SEGS = 11264        # B4's ring: the 30 s IR's 11250 segments padded to the 512 chunk
 STREAM_TIMED, STREAM_WARMUP = 32, 4                      # calls
 # the JAX farm benchmark's shape (benchmarks/configs.py:271-333, config 5)
 FARM_VOICES, FARM_SECONDS, FARM_SCALE = 128, 60, 0.002
@@ -222,9 +245,7 @@ SP2_PERIODS, SP2_CALLS = 4, 2     # the sharded two-stage engine, 60 s IR
 DP_PERIODS, DP_CALLS, DP_TIMED = 8, 2, 4
 ALLREDUCE_REPS, ALLREDUCE_WARMUP = 200, 20
 MESH_SEED = 17                    # the phase's inputs, drawn on the card
-# one H100 SXM: the HBM3 rate and the FP32 peak outside the tensor cores
-# (NVIDIA's data sheet, at the full 700 W power limit)
-HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
+PROFILE_TRIES = 3                 # profiler windows tried while one records no CUDA kernel
 
 
 def fail(msg: str) -> None:
@@ -303,58 +324,89 @@ def core_calls(since: tuple | None = None) -> tuple:
     return now if since is None else tuple(a - b for a, b in zip(now, since))
 
 
-def bound(nbytes: float, flops: float) -> dict:
-    """The least time the card could take for work that must move
-    ``nbytes`` (each input read once, each output written once) and do
-    ``flops`` FP32 operations: the larger of the two quotients."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    t = max(t_bytes, t_ops)
-    return {"bound_ms": t * 1e3, "bound_us": t * 1e6,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+@functools.cache
+def roofline():
+    """The port's cost model, this checkout's
+    ``fft_convolution_tpu_torch/utils/roofline.py``, loaded by file path:
+    it imports nothing of the port, so the engines of another checkout
+    (``profile_steps.py`` / ``profile_batched.py --root``, whose parent may
+    have no such module) are divided by this one yardstick."""
+    path = ROOT / "fft_convolution_tpu_torch" / "utils" / "roofline.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_roofline", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
-def fft_flops(b: int) -> float:
-    """One real transform of 2b points: 2.5 N log2 N with N = 2b."""
-    return 2.5 * (2 * b) * math.log2(2 * b)
+@dataclasses.dataclass(frozen=True)
+class Card:
+    """The card every share is taken on: its roofline peaks and
+    ``nvidia-smi``'s name and power limit, printed beside each share."""
+
+    peaks: object  # roofline.Peaks
+    smi: str
 
 
-def step_bound(n: int, b: int, tables: int, item: int, vectors_in: int,
-               vectors_out: int) -> dict:
-    """A per-block step over an n-row ring shared by ``tables`` IR tables
-    of b+1 bins stored ``item`` bytes a bin: ring and tables read once, ring
-    row ``current`` written, the twiddle table (2b complex64) read, and
-    ``vectors_in`` / ``vectors_out`` float32 vectors of b samples (input
-    block, overlaps, period-buffer rows, output).  FLOPs: 8 a complex MAC,
-    one forward and ``tables`` inverse transforms."""
-    nb = b + 1
-    nbytes = ((1 + tables) * n * nb + nb) * item + 2 * b * 8 \
-        + (vectors_in + vectors_out) * b * 4
-    return bound(nbytes, 8 * tables * n * nb + (1 + tables) * fft_flops(b))
+def card() -> Card:
+    """Card 0's peaks (``roofline.peaks``: fails for a card it does not
+    know) and its ``nvidia-smi --query-gpu=name,power.limit`` line."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    return Card(roofline().peaks(0), smi)
+
+
+def shares(name: str, cost, crd: Card, **seconds) -> dict:
+    """The bound of ``cost`` on the card (``roofline.bound``) and its share
+    of each measured time in ``seconds`` (label: seconds), printed with the
+    card's name and power limit.  A share above 1 means the count is wrong
+    (no correct implementation beats the bound): fail, naming the path."""
+    rl = roofline()
+    out = rl.bound(cost, crd.peaks)
+    for key, s in seconds.items():
+        if not s > 0:
+            fail(f"{name}: no {key} time to take a share of ({s!r})")
+        out[f"share_{key}"] = rl.utilization(cost, s, crd.peaks)["share"]
+    print(f"{name}: bound {out['bound_us']!r} us by {out['bound_by']} ({cost.bytes!r} bytes, "
+          f"{cost.flops!r} FLOPs; L2-resident {out['l2_resident']}); share "
+          + ", ".join(f"of {key} {out[f'share_{key}']!r}" for key in seconds)
+          + f" ({crd.smi})", flush=True)
+    for key in seconds:
+        if not out[f"share_{key}"] <= 1.0:
+            fail(f"{name}: share of the {key} time {out[f'share_{key}']!r} > 1: the "
+                 "roofline count is wrong")
+    return out
 
 
 def profile_steps(step, steps: int, warmup: int) -> dict:
     """Device time per step: ``step(i)`` for ``warmup`` calls, then a
     ``torch.profiler`` window over ``steps`` calls.  Sums the CUDA kernel
     events only (not the host-side rows, which would count each kernel
-    twice; not memory copies or sets)."""
+    twice; not memory copies or sets).  A window that recorded no CUDA
+    kernel (a profiler dropout) is taken again, up to
+    :data:`PROFILE_TRIES` windows (``windows``: how many were taken)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(warmup):
         step(i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(warmup, warmup + steps):
-            step(i)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not e.name.startswith(("Memcpy", "Memset"))]
+    for windows in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(warmup, warmup + steps):
+                step(i)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset"))]
+        if kernels:
+            break
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / steps
     return {"device_us": sum(by_name.values()),
             "cuda_launches_per_step": len(kernels) / steps, "names": sorted(by_name),
-            "by_name": by_name}
+            "by_name": by_name, "windows": windows}
 
 
 def latency(conv, xs: torch.Tensor, warmup: int = WARMUP_BLOCKS,
@@ -422,24 +474,27 @@ def event_ms(thunks) -> list[float]:
     return [s.elapsed_time(e) for s, e in events]
 
 
-def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
-                    b4_us: float | None = None) -> dict:
+def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor, crd: Card,
+                    b4: tuple | None = None) -> dict:
     """Phase 15 (module docstring): every batched stream the port routes an
-    aligned call to, at the JAX benchmarks' shapes.  ``b4_us``: B4's device
-    microseconds a call, printed beside the conv core at B4's shape.
-    Returns a record a shape."""
+    aligned call to, at the JAX benchmarks' shapes, each call's time held
+    to its roofline bound on the card ``crd`` (:func:`shares`).  ``b4``:
+    B4's device microseconds a call and its ``roofline.Cost``, held beside
+    the conv core at B4's shape against the one bound.  Returns a record a
+    shape."""
     from fft_convolution_tpu_torch import (CrossfadeConvolver, FFTConvolver, ReverbFarm,
                                            TwoStageFFTConvolver)
     from fft_convolution_tpu_torch.models import crossfade, two_stage, uniform
     from fft_convolution_tpu_torch.ops.fft import next_power_of_two
     from fft_convolution_tpu_torch.parallel import farm
 
+    rl = roofline()
     record = {}
 
     def randn(rng, shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
 
-    def drive(name, x, batched, sequential, reference, per_call, audio_s, thunks,
+    def drive(name, x, batched, sequential, reference, per_call, audio_s, thunks, cost,
               pick=lambda y: y):
         """``x [calls, T, ...]``: the calls through ``batched`` (``per_call``
         calls of each stream core a call, :func:`core_calls`; no hand-written
@@ -447,7 +502,8 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
         held against ``reference(x)``, a float64 convolution (``pick``
         selects the part of the output ``sequential`` computes).  Then the
         xRT of a warm call (``thunks(k)``: k warm calls, in turn) and of the
-        block loop, and one call's profile."""
+        block loop, one call's profile, and the call's share of the bound of
+        ``cost`` (its ``roofline.Cost``) in device and in event time."""
         calls, t = x.shape[:2]
         n0 = core_calls()
         y = counts.drive(f"{name} batched", lambda: torch.stack([batched(xc) for xc in x]),
@@ -487,6 +543,7 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
               f"block loop {loop_ms!r} ms a call ({k} blocks timed) -> xRT "
               f"{rec['xrt_loop']!r}; one call {prof['device_us']!r} device us in "
               f"{prof['cuda_launches_per_step']!r} CUDA kernels", flush=True)
+        rec.update(shares(name, cost, crd, device=prof["device_us"] / 1e6, event=ms / 1e3))
         return rec
 
     def aligned_form(eng, x0, fuse, chrono, multi):
@@ -541,10 +598,11 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
             rows.append(eng._tail_pos)
             return y
 
+        cost = rl.two_stage_stream_cost(c, t)
         rec = drive(name, x, batched, lambda xc: run_blocks(twin, xc),
                     lambda xa: conv64(xa.reshape(-1), ir_d).view(xa.shape),
                     (0, 1, 1), t * BLOCK / SR,
-                    lambda k: [lambda: eng.process(x[0].reshape(-1))] * k)
+                    lambda k: [lambda: eng.process(x[0].reshape(-1))] * k, cost)
         multi = two_stage.fused_uses_multi(c, t)
         print(f"{name}: fused side passes {'MULTI' if multi else 'SEPARATE'} (T + n = "
               f"{t + c.head.seg_count}, FUSED_MULTI_MAX_ROWS "
@@ -571,6 +629,9 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
                   f"{form['device_us']!r} device us in {form['cuda_kernels']!r} CUDA "
                   f"kernels; stream cores {took}; first call vs the default form "
                   f"{form['diff_vs_default']!r}", flush=True)
+            # every form computes one function: one cost, one bound
+            form.update(shares(f"{name} form {label}", cost, crd,
+                               device=prof["device_us"] / 1e6, event=ms / 1e3))
 
     def uniform_t(name, n, key):
         t = next_power_of_two(n + {1: 1023, 2: 511, 4: 255}[key]) - n + 1
@@ -597,7 +658,8 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
     drive("config 1 uniform", x, lambda xc: eng1.process(xc.reshape(-1)).view(xc.shape),
           lambda xc: run_blocks(twin1, xc),
           lambda xa: conv64(xa.reshape(-1), ir1_d).view(xa.shape),
-          (1, 0, 0), t * BLOCK / SR, lambda k: [lambda: eng1.process(x[0].reshape(-1))] * k)
+          (1, 0, 0), t * BLOCK / SR, lambda k: [lambda: eng1.process(x[0].reshape(-1))] * k,
+          rl.stream_conv_cost(eng1.cfg, t))
 
     # config 2: benchmarks/configs.py:121-146, the stereo farm at block 256
     rng = np.random.default_rng(1)
@@ -616,7 +678,8 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
     drive("config 2 uniform farm", x, lambda xc: farm.farm_stream(cfg2, st2, xc, kern_hat=kh2),
           lambda xc: torch.stack([farm.farm_step(cfg2, st2_seq, xt) for xt in xc]),
           lambda xa: voices64(xa, irs2), (1, 0, 0), t * 256 / SR,
-          lambda k: [lambda: farm.farm_stream(cfg2, st2, x[0], kern_hat=kh2)] * k)
+          lambda k: [lambda: farm.farm_stream(cfg2, st2, x[0], kern_hat=kh2)] * k,
+          rl.stream_conv_cost(cfg2, t, voices=x.shape[2]))
 
     # config 3: benchmarks/configs.py:149-198
     two_stage_shape("config 3 two-stage 30 s", 2, CONFIG3_SECONDS, 0.005, CONFIG3_PERIODS,
@@ -652,7 +715,8 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
           (2, 0, 0), t * BLOCK / SR,
           # each timed call on its own clone of the engine mid-fade
           lambda k: [functools.partial(c.process, x[0].reshape(-1))
-                     for c in [cc.clone() for _ in range(k)]])
+                     for c in [cc.clone() for _ in range(k)]],
+          rl.crossfade_stream_cost(cc.cfg, t))
 
     # a short-IR ReverbFarm: no big tail, head and tail0 on the conv core
     v, taps, t = SHORT_FARM
@@ -669,10 +733,12 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
           lambda xc: torch.stack([run_blocks(e, xc[:, i]) for e, i in zip(twins, checked)],
                                  dim=1),
           lambda xa: voices64(xa, irs6), (2, 0, 0), t * BLOCK / SR,
-          lambda k: [lambda: fm.process(x[0])] * k, pick=lambda y: y[:, :, checked])
+          lambda k: [lambda: fm.process(x[0])] * k, rl.farm_cost(fm.cfg, v, t),
+          pick=lambda y: y[:, :, checked])
 
-    # B4 yardstick (printed, not gated): the conv core at B4's shape
-    yard = FFTConvolver(ir30, BLOCK, len(ir30), device=dev)
+    # B4 yardstick: the conv core at B4's shape (its padded segment count),
+    # the same function as B4's call, so one cost and one bound for both
+    yard = FFTConvolver(ir30, BLOCK, STREAM_SEGS * BLOCK, device=dev)
     t = x30.shape[1] // BLOCK
     y0 = yard.process(x30[0])
     yard_err = err64(y0, conv64(x30[0], torch.from_numpy(ir30).to(dev)))
@@ -680,9 +746,10 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
     ms = statistics.median(event_ms([functools.partial(yard.process, x30[1 + i])
                                      for i in range(YARD_WARMUP + YARD_TIMED)])[YARD_WARMUP:])
     prof = profile_steps(lambda i: yard.process(x30[i % x30.shape[0]]), BATCHED_PROFILED, 0)
-    if core_calls(n0) != (YARD_WARMUP + YARD_TIMED + BATCHED_PROFILED, 0, 0):
+    if core_calls(n0) != (YARD_WARMUP + YARD_TIMED + BATCHED_PROFILED * prof["windows"], 0, 0):
         fail("B4 yardstick: a call missed the conv core")
     m = uniform.meta_size(yard.cfg.seg_count, t)
+    b4_us, b4_cost = b4 if b4 is not None else (None, None)
     record["B4 yardstick"] = {"N": yard.cfg.seg_count, "T": t, "m": m, "ms": ms,
                               "device_us": prof["device_us"],
                               "cuda_kernels": prof["cuda_launches_per_step"],
@@ -692,6 +759,14 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor,
           f"{prof['device_us']!r} device us in {prof['cuda_launches_per_step']!r} CUDA "
           f"kernels, {ms!r} ms a call (CUDA-event median); B4 {b4_us!r} device us "
           f"(phase 14, None when not run); first call vs float64 {yard_err!r}", flush=True)
+    cost = rl.stream_conv_cost(yard.cfg, t)
+    if b4_cost is not None and b4_cost != cost:
+        fail(f"B4 yardstick: B4 is costed {b4_cost}, the conv core at its shape {cost}")
+    record["B4 yardstick"].update(shares("B4 yardstick", cost, crd,
+                                         device=prof["device_us"] / 1e6, event=ms / 1e3))
+    if b4_us is not None:
+        record["B4 yardstick"]["b4_share_device"] = shares(
+            "B4 beside its yardstick", cost, crd, device=b4_us / 1e6)["share_device"]
 
     # cuFFT along the block axis: strided (dim -2) against contiguous rows
     for rows in (4096, 16384):
@@ -719,12 +794,12 @@ def period_end_split(samples_s: list, period_end: list) -> dict:
 
 
 def host_runtime(dev, counts: Counts, ir: np.ndarray, ir_b: np.ndarray, x_host: np.ndarray,
-                 engines: dict, timing: dict) -> dict:
+                 engines: dict, timing: dict, crd: Card) -> dict:
     """Phase 16 (module docstring): the host runtime over the per-block
     wrappers in ``engines`` (B1, B1p, B2, B3 at the flagship shape) and the
     flagship IRs ``ir`` and ``ir_b``; ``timing``: phases 5 and 9's
-    card-tensor latencies, printed beside the host-callback ones.  Returns
-    a record."""
+    card-tensor latencies, printed beside the host-callback ones; ``crd``:
+    the card the big-tail step's share is taken on.  Returns a record."""
     from fft_convolution_tpu_torch import TwoStageFFTConvolver, runtime
     from fft_convolution_tpu_torch.examples import reverb_farm, serve_morph
     from fft_convolution_tpu_torch.models import uniform
@@ -813,6 +888,9 @@ def host_runtime(dev, counts: Counts, ir: np.ndarray, ir_b: np.ndarray, x_host: 
     print(f"B2 big-tail step alone (tail block {two.cfg.tail_block}, "
           f"{two.cfg.tail.seg_count} segments): CUDA-event median {statistics.median(tail_ms)!r}"
           f" ms, max {max(tail_ms)!r} ms over {len(tail_ms)}", flush=True)
+    lat["B2"]["big_tail_step_bound"] = shares(
+        "B2 big-tail step alone", roofline().stream_conv_cost(two.cfg.tail, 1), crd,
+        event=statistics.median(tail_ms) / 1e3)
 
     # StreamingConvolver over the batched two-stage engine: 441-sample pushes
     # (the sub-block route), a push back to the block boundary, a
@@ -1170,10 +1248,8 @@ def main() -> None:
     lib_path = _build.build()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path.name}", flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    crd = card()
+    print(crd.smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     phase_done("1 build")
@@ -1320,8 +1396,8 @@ def main() -> None:
     n_st = st.cfg.seg_count
     print(f"stream: N={n_st} (chunk {st.chunk}), {STREAM_CALLS} calls of {STREAM_CALL} "
           f"blocks = {STREAM_CALLS * STREAM_CALL} blocks", flush=True)
-    if n_st != 11264 or STREAM_CALLS * STREAM_CALL <= n_st:
-        fail("stream shape differs from N=11264 or the ring would not wrap")
+    if n_st != STREAM_SEGS or STREAM_CALLS * STREAM_CALL <= n_st:
+        fail(f"stream shape differs from N={STREAM_SEGS} or the ring would not wrap")
     st_plain, st_bf_plain = st.clone(), st_bf.clone()
     st_plain._step = st_bf_plain._step = cuda_stream.stream_plain
     y_st = counts.drive("B4 f32 path", lambda: run_blocks(st, x_st), {"B4": STREAM_CALLS})
@@ -1457,8 +1533,11 @@ def main() -> None:
     phase_done("12 B5 bf16 farm")
 
     # ---- 13. farm latency, kernel path against plain path ---------------------
-    farm_step = {}  # tag: (step ms, bound of the step alone)
+    rl = roofline()
+    farm_step = {}  # tag: (step ms, bound and share of the step alone)
+    farm_call = {}  # label: bound and share of the call (the kernel path's best median)
     for dtype, tag in ((torch.float32, "B5"), (torch.bfloat16, "B5p")):
+        item = rl.C64 if dtype == torch.float32 else rl.BF16_PAIR
         f = ReverbFarm(farm_irs, BLOCK, farm_irs.shape[1], device=dev, tail_dtype=dtype)
         f_plain = f.clone()
         f_plain._step = cuda_farm_mac.phased_step_plain
@@ -1473,14 +1552,16 @@ def main() -> None:
                       for r in timing[label][kind]]
                 print(f"latency {label} {kind}: real-time voices {rt!r} "
                       f"({audio_s!r} s of audio per call)", flush=True)
+            farm_call[label] = shares(
+                f"{label} call", rl.farm_cost(cfg, FARM_VOICES, periods * p, item), crd,
+                event=min(r["event_ms"] for r in timing[label]["kernel"]) / 1e3)
             del xt
         # the step alone at the 8-period call's T = 8, on the farm's tensors
         tail = f.state.tail
         specs = torch.randn((8, FARM_VOICES, cfg.tail_block + 1), dtype=torch.complex64,
                             generator=gen, device=dev)
-        item = 8 if dtype == torch.float32 else 4
-        lanes = FARM_VOICES * (cfg.tail_block + 1)
-        moved = (2 * cfg.tail.seg_count + 8) * lanes * item + (2 * 8 + 1) * lanes * 8
+        cost = rl.farm_tail_step_cost(cfg, FARM_VOICES, 8, item)
+        moved = cost.bytes
         for kind, step in (("kernel", f._step), ("plain", cuda_farm_mac.phased_step_plain)):
             reps = 10 if kind == "kernel" else 3
             step(tail.ring, tail.table, specs, 0)
@@ -1496,15 +1577,14 @@ def main() -> None:
             print(f"{tag} step alone, T=8, {kind}: {ms!r} ms; {moved / 1e9!r} GB compulsory "
                   f"-> {moved / ms / 1e9!r} TB/s", flush=True)
             if kind == "kernel":
-                # FLOPs: 8 a complex MAC, T x N ring rows a lane
-                farm_step[tag] = (ms, bound(moved, 8 * 8 * cfg.tail.seg_count * lanes))
+                farm_step[tag] = (ms, shares(f"{tag} step alone, T=8", cost, crd,
+                                             step=ms / 1e3))
         del f, f_plain, tail, specs
         torch.cuda.empty_cache()
     phase_done("13 B5 latency")
 
     # ---- 14. device time and CUDA launches per step, from the profiler ------------
-    n_uni, p_two, n_xf = uni.cfg.seg_count, two.cfg.period, xf.cfg.seg_count
-    n_two = two.cfg.head.seg_count
+    p_two = two.cfg.period
     steps = {
         "B1": lambda i: cuda_engine.block_step(uni.consts, uni.state, xs[i]),
         "B1p": lambda i: cuda_engine.block_step_packed(uni_bf.consts, uni_bf.state, xs[i]),
@@ -1513,35 +1593,31 @@ def main() -> None:
         "B3": lambda i: cuda_crossfade.block_step(xf.consts, xf.state, xf.cf_cfg,
                                                   xf.cf_state, xs[i]),
     }
-    bounds = {"B1": step_bound(n_uni, BLOCK, 1, 8, 2, 2),
-              "B1p": step_bound(n_uni, BLOCK, 1, 4, 2, 2),
-              # in: x, both overlaps, both precalculated tail rows; out: y,
-              # both overlaps, tail0's output row, the period input row
-              "B2": step_bound(n_two, BLOCK, 2, 8, 5, 5),
-              "B3": step_bound(n_xf, BLOCK, 2, 8, 3, 3)}
+    # the roofline costs (utils/roofline.py): B1/B1p a one-block uniform
+    # stream, B4/B4p a 64-block one (bf16: ring and table, table alone), B3
+    # a one-block crossfade stream, B2 its own step
+    bf16 = rl.BF16_PAIR
+    costs = {"B1": rl.stream_conv_cost(uni.cfg, 1),
+             "B1p": rl.stream_conv_cost(uni_bf.cfg, 1, ring_item=bf16, table_item=bf16),
+             "B2": rl.two_stage_step_cost(two.cfg),
+             "B3": rl.crossfade_stream_cost(xf.cfg, 1),
+             "B4": rl.stream_conv_cost(st.cfg, STREAM_CALL),
+             "B4p": rl.stream_conv_cost(st_bf.cfg, STREAM_CALL, table_item=bf16)}
     profiled = {label: profile_steps(step, PROFILE_STEPS, PROFILE_WARMUP)
                 for label, step in steps.items()}
-    nb = BLOCK + 1
     for label, conv in (("B4", st), ("B4p", st_bf)):
-        # per 64-block call: ring read, table read (f32 or bf16), the call's
-        # new ring rows written, twiddles, input and output blocks, overlap
-        # in and out; FLOPs: T x N complex MACs, a forward and an inverse
-        # transform a block
-        item = 8 if label == "B4" else 4
-        nbytes = n_st * nb * (8 + item) + STREAM_CALL * nb * 8 + 2 * BLOCK * 8 \
-            + 2 * STREAM_CALL * BLOCK * 4 + 2 * BLOCK * 4
-        flops = 8 * STREAM_CALL * n_st * nb + 2 * STREAM_CALL * fft_flops(BLOCK)
         profiled[label] = profile_steps(
             lambda i, c=conv: c._step(c.consts, c.state, x_st[i % STREAM_CALLS]
                                       .reshape(-1, BLOCK)),
             PROFILE_CALLS, PROFILE_CALL_WARMUP)
-        bounds[label] = bound(nbytes, flops)
+    bounds = {}
     for label, prof in profiled.items():
         per_kernel = ", ".join(f"{name} {us!r}" for name, us in prof["by_name"].items())
         print(f"profile {label}: {prof['device_us']!r} device us and "
               f"{prof['cuda_launches_per_step']!r} CUDA kernels per step "
-              f"(device us by kernel: {per_kernel}); bound {bounds[label]['bound_us']!r} us "
-              f"by {bounds[label]['bound_by']}", flush=True)
+              f"(device us by kernel: {per_kernel})", flush=True)
+        bounds[label] = shares(f"profile {label}", costs[label], crd,
+                               device=prof["device_us"] / 1e6)
     for label, want in (("B1", 1), ("B1p", 1), ("B2", 1), ("B3", 1), ("B4", 3), ("B4p", 3)):
         # `want` kernels, each once a step (the profiler may drop an event of 256)
         prof = profiled[label]
@@ -1551,13 +1627,14 @@ def main() -> None:
     phase_done("14 device profile")
 
     # ---- 15. batched streams at the JAX benchmarks' shapes --------------------
-    batched = batched_streams(dev, counts, ir30, x_st, profiled["B4"]["device_us"])
+    batched = batched_streams(dev, counts, ir30, x_st, crd,
+                              (profiled["B4"]["device_us"], costs["B4"]))
     print(json.dumps({"batched_streams": batched}), flush=True)
     phase_done("15 batched streams")
 
     # ---- 16. the host runtime ---------------------------------------------------
     host = host_runtime(dev, counts, ir, ir_b, x_host,
-                        {"B1": uni, "B1p": uni_bf, "B2": two, "B3": xf}, timing)
+                        {"B1": uni, "B1p": uni_bf, "B2": two, "B3": xf}, timing, crd)
     print(json.dumps({"host_runtime": host}), flush=True)
     phase_done("16 host runtime")
 
@@ -1577,12 +1654,17 @@ def main() -> None:
                "launches": launches[label], "max_abs_err": err,
                "ms": best(timed, "kernel"), "plain_ms": best(timed, "plain")}
         if label in profiled:
-            out.update(bounds[label], device_us=profiled[label]["device_us"],
+            bd = bounds[label]
+            out.update(device_us=profiled[label]["device_us"],
                        device_us_by_kernel=profiled[label]["by_name"],
-                       cuda_launches_per_step=profiled[label]["cuda_launches_per_step"])
-        else:  # B5: the step alone at T = 8
+                       cuda_launches_per_step=profiled[label]["cuda_launches_per_step"],
+                       share=bd["share_device"])
+        else:  # B5: the step alone at T = 8, and the 8-period call
             step_ms, bd = farm_step[label]
-            out.update(bd, step_ms=step_ms)
+            call = farm_call[timed]
+            out.update(step_ms=step_ms, share=bd["share_step"], call_bound_us=call["bound_us"],
+                       call_share=call["share_event"])
+        out.update({k: bd[k] for k in ("bound_ms", "bound_us", "bound_by", "l2_resident")})
         out["library_ms"] = None
         return out
 

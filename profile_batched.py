@@ -10,10 +10,15 @@ phase (conv-core routing, 1e-4 against float64 and against the block loop,
 no hand-written kernel launched), then one JSON line with the card's name
 and power limit and, for each shape, the median CUDA-event ms of a warm
 call, the device microseconds and CUDA kernels of one call
-(``torch.profiler``) and the error against float64.  The B4 yardstick
-runs on a random 30 s IR (seed 0) in 64-block calls.  To compare two
-checkouts, run both on the same card one after the other, in turns
-(parent, change, change, parent).
+(``torch.profiler``), the error against float64, and the call's
+``bound_us``, ``bound_by`` and shares of the device and the event time
+(``chip_smoke.shares``, gated <= 1), each two-stage form's too.  The
+bounds come from THIS checkout's
+``fft_convolution_tpu_torch/utils/roofline.py``, loaded by path before
+``DIR`` goes on ``sys.path``, so every checkout is divided by one
+yardstick.  The B4 yardstick runs on a random 30 s IR (seed 0) in 64-block
+calls.  To compare two checkouts, run both on the same card one after the
+other, in turns (parent, change, change, parent).
 """
 
 from __future__ import annotations
@@ -21,15 +26,16 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
-import subprocess
 import sys
 
 import numpy as np
 import torch
 
-from chip_smoke import BLOCK, SR, STREAM_CALL, STREAM_SECONDS, Counts, batched_streams
+from chip_smoke import (BLOCK, SR, STREAM_CALL, STREAM_SECONDS, Counts, batched_streams, card,
+                        roofline)
 
-KEYS = ("ms", "device_us", "cuda_kernels", "err_f64", "dim_-2_us", "dim_-1_us")
+KEYS = ("ms", "device_us", "cuda_kernels", "err_f64", "bound_us", "bound_by", "share_device",
+        "share_event", "dim_-2_us", "dim_-1_us")
 
 
 def main() -> None:
@@ -39,6 +45,8 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_batched: no CUDA device")
+    roofline()  # this checkout's cost model, before DIR's package
+    crd = card()
     sys.path.insert(0, args.root)
     import fft_convolution_tpu_torch as port
     from fft_convolution_tpu_torch.ops import (cuda_crossfade, cuda_engine, cuda_farm_mac,
@@ -53,12 +61,13 @@ def main() -> None:
     ir30 = (rng.standard_normal(STREAM_SECONDS * SR) * 0.01).astype(np.float32)
     x30 = torch.from_numpy(rng.standard_normal((40, STREAM_CALL * BLOCK))
                            .astype(np.float32)).to(dev)
-    record = batched_streams(dev, counts, ir30, x30)
-    out = {"root": str(pathlib.Path(port.__file__).resolve().parent.parent),
-           "card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                                   "--format=csv,noheader"], capture_output=True, text=True,
-                                  check=True).stdout.strip().splitlines()[0],
-           **{name: {k: rec[k] for k in KEYS if k in rec} for name, rec in record.items()}}
+    record = batched_streams(dev, counts, ir30, x30, crd)
+    out = {"root": str(pathlib.Path(port.__file__).resolve().parent.parent), "card": crd.smi,
+           **{name: {**{k: rec[k] for k in KEYS if k in rec},
+                     **({"forms": {label: {k: f[k] for k in KEYS if k in f}
+                                   for label, f in rec["forms"].items()}}
+                        if "forms" in rec else {})}
+              for name, rec in record.items()}}
     print(json.dumps(out), flush=True)
 
 

@@ -17,9 +17,13 @@ warm calls, the device microseconds by CUDA kernel name (one kernel a step
 for each of B1-B3; three a call for B4 in this checkout, four in an older
 one), and the median CUDA-event span of one ``process`` call
 and the host's time to enqueue it (``chip_smoke.latency``; B4: 32 timed
-calls after 4).  To compare two
-checkouts on one card, run both in one machine session, in turns (parent,
-change, change, parent).
+calls after 4), and each path's ``bound_us``, ``bound_by`` and ``share``
+of the device time (``chip_smoke.shares``, gated <= 1, which also prints
+them).  The bounds come from THIS checkout's
+``fft_convolution_tpu_torch/utils/roofline.py``, loaded by path before
+``DIR`` goes on ``sys.path``, so every checkout is divided by one
+yardstick.  To compare two checkouts on one card, run both in one machine
+session, in turns (parent, change, change, parent).
 """
 
 from __future__ import annotations
@@ -27,7 +31,6 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
-import subprocess
 import sys
 
 import numpy as np
@@ -35,7 +38,8 @@ import torch
 
 from chip_smoke import (BLOCK, IR_SECONDS, PROFILE_CALL_WARMUP, PROFILE_CALLS,
                         PROFILE_STEPS, PROFILE_WARMUP, SR, STREAM_CALL, STREAM_SECONDS,
-                        STREAM_TIMED, STREAM_WARMUP, T_BLOCKS, latency, profile_steps)
+                        STREAM_TIMED, STREAM_WARMUP, T_BLOCKS, card, latency, profile_steps,
+                        roofline, shares)
 
 
 def _latency(r: dict) -> dict:
@@ -49,6 +53,7 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_steps: no CUDA device")
+    rl, crd = roofline(), card()  # this checkout's cost model, before DIR's package
     sys.path.insert(0, args.root)
     import fft_convolution_tpu_torch as port
     from fft_convolution_tpu_torch import _build
@@ -66,25 +71,32 @@ def main() -> None:
     uni_bf = CudaFFTConvolver(ir, BLOCK, len(ir), device=dev, storage="bf16_packed")
     two = CudaTwoStageConvolver(ir, BLOCK, len(ir), device=dev)
     xf = CudaCrossfadeConvolver(ir, BLOCK, len(ir), crossfade_samples=4 * BLOCK, device=dev)
-    p = two.cfg.period
+    p, bf16 = two.cfg.period, rl.BF16_PAIR
     steps = {
-        "B1": (uni, lambda i: cuda_engine.block_step(uni.consts, uni.state, xs[i])),
+        "B1": (uni, lambda i: cuda_engine.block_step(uni.consts, uni.state, xs[i]),
+               rl.stream_conv_cost(uni.cfg, 1)),
         "B1p": (uni_bf, lambda i: cuda_engine.block_step_packed(uni_bf.consts, uni_bf.state,
-                                                                xs[i])),
+                                                                xs[i]),
+                rl.stream_conv_cost(uni_bf.cfg, 1, ring_item=bf16, table_item=bf16)),
         "B2": (two, lambda i: cuda_two_stage.block_step(two.consts, two.fstate, two.buffers,
-                                                        i % p, xs[i])),
+                                                        i % p, xs[i]),
+               rl.two_stage_step_cost(two.cfg)),
         "B3": (xf, lambda i: cuda_crossfade.block_step(xf.consts, xf.state, xf.cf_cfg,
-                                                       xf.cf_state, xs[i])),
+                                                       xf.cf_state, xs[i]),
+               rl.crossfade_stream_cost(xf.cfg, 1)),
     }
-    out = {"root": str(pathlib.Path(port.__file__).resolve().parent.parent),
-           "card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                                   "--format=csv,noheader"], capture_output=True, text=True,
-                                  check=True).stdout.strip().splitlines()[0]}
-    for label, (conv, step) in steps.items():
+    out = {"root": str(pathlib.Path(port.__file__).resolve().parent.parent), "card": crd.smi}
+
+    def bounded(label, cost, prof):
+        bd = shares(f"{label} ({out['root']})", cost, crd, device=prof["device_us"] / 1e6)
+        return {"bound_us": bd["bound_us"], "bound_by": bd["bound_by"],
+                "share": bd["share_device"]}
+
+    for label, (conv, step, cost) in steps.items():
         prof = profile_steps(step, PROFILE_STEPS, PROFILE_WARMUP)
         out[label] = {"device_us": prof["device_us"],
                       "cuda_launches_per_step": prof["cuda_launches_per_step"],
-                      "device_us_by_kernel": prof["by_name"],
+                      "device_us_by_kernel": prof["by_name"], **bounded(label, cost, prof),
                       **_latency(latency(conv, xs))}
     ir30 = (rng.standard_normal(STREAM_SECONDS * SR) * 0.01).astype(np.float32)
     calls = STREAM_WARMUP + STREAM_TIMED
@@ -95,9 +107,11 @@ def main() -> None:
         prof = profile_steps(lambda i, c=conv: c._step(c.consts, c.state,
                                                        x_st[i % calls].reshape(-1, BLOCK)),
                              PROFILE_CALLS, PROFILE_CALL_WARMUP)
+        cost = rl.stream_conv_cost(conv.cfg, STREAM_CALL,
+                                   table_item=bf16 if storage == "bf16_packed" else rl.C64)
         out[label] = {"device_us": prof["device_us"],
                       "cuda_launches_per_step": prof["cuda_launches_per_step"],
-                      "device_us_by_kernel": prof["by_name"],
+                      "device_us_by_kernel": prof["by_name"], **bounded(label, cost, prof),
                       **_latency(latency(conv, x_st, warmup=STREAM_WARMUP,
                                          timed_n=STREAM_TIMED))}
     print(json.dumps(out), flush=True)
