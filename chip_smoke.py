@@ -19,7 +19,8 @@ printed with the card's name and power limit and gated <= 1 (a share above
    print the card;
 2. ``CudaFFTConvolver`` (kernel B1) for 128 blocks and
    ``CudaTwoStageConvolver`` (kernel B2, big tail every 64 blocks) for 192
-   blocks at the flagship shape;
+   blocks at the flagship shape; the big tail gated to three CUDA-graph
+   replays on the wrapper's side stream and none in line;
 3. the same wrappers through the kernels' plain PyTorch versions on the card,
    held to 1e-4 (max abs) against the kernel path and against a float64
    direct convolution;
@@ -110,13 +111,22 @@ printed with the card's name and power limit and gated <= 1 (a share above
 16. the host runtime (``runtime/``, ``utils/``, ``examples/``): the native
     library built with g++; ``HostEngine`` (numpy blocks in and out) over
     B1, B2 and B3 for 512 blocks against the same wrapper fed card tensors
-    (1e-6, and whether bit-equal); the host-callback latency of B1, B1p, B2
+    (1e-6, and whether bit-equal); B2's race gate (:func:`race_gate`): three
+    runs from the flagship wrapper's state over at least
+    :data:`RACE_PERIODS` periods of numpy blocks through ``HostEngine``, as
+    it runs, with its side stream held back :data:`RACE_HOLD_MS` before each
+    period end, and synchronised after every block, gated bit-equal in
+    outputs and exit snapshot, with one big-tail graph replay a period end
+    and none in line (and the held-back run gated slower by the holds, so
+    the hold held); the host-callback latency of B1, B1p, B2
     and B3 over 2000 warm numpy blocks, the copies and the sync included
     (median gated below the 2.667 ms block; p99 and max printed) beside the
     card-tensor latency of phases 5 and 9, B2's split into the blocks that
-    end a period (the big tail runs there) and the others, with the big-tail
-    step's CUDA-event time alone and its share of its bound
-    (``roofline.stream_conv_cost`` at the tail block, gated);
+    end a period (the big tail is enqueued there) and the others, the
+    B2 run gated to one graph replay a period end; the big-tail step's
+    CUDA-event time alone, eager and as the wrapper's graph replay, and the
+    eager step's share of its bound (``roofline.stream_conv_cost`` at the
+    tail block, gated);
     ``StreamingConvolver`` over the
     flagship ``TwoStageFFTConvolver`` fed 441-sample pushes, then a push
     back to the block boundary and a block-aligned push of three periods
@@ -237,6 +247,9 @@ DISPATCH_BLOCKS, PACED_BLOCKS = 4000, 1000
 STREAM_ALIGNED_PERIODS = 3        # the block-aligned push, in the flagship's periods
 CKPT_BLOCKS, CKPT_CONTINUE = 100, 64
 TAIL_STEP_REPS = 20               # B2's big-tail step alone, timed
+RACE_PERIODS, RACE_HOLD_MS = 6, 20.0  # B2's race gate: periods a run; the side stream held
+#                                       back this long before each period end (> a block,
+#                                       and > a period of back-to-back host callbacks)
 EXAMPLE_VOICES, EXAMPLE_IR_SECONDS = 8, 4
 # phase 17: the mesh, two ranks on one card
 MESH_RANKS = 2
@@ -781,6 +794,27 @@ def batched_streams(dev, counts: Counts, ir30: np.ndarray, x30: torch.Tensor, cr
     return record
 
 
+def host_callbacks(host, blocks: np.ndarray, warmup: int) -> tuple:
+    """``host.process`` (a ``HostEngine``) over the numpy ``blocks``, the
+    first ``warmup`` untimed, each other call timed by the host clock in a
+    ``LatencyRecorder``.  Returns the recorder and, for an engine with a
+    tail period (``row``), whether each timed block ended one."""
+    from fft_convolution_tpu_torch.utils.profiling import LatencyRecorder
+
+    eng = host.engine
+    period = eng.cfg.period if hasattr(eng, "row") else None
+    rec, period_end = LatencyRecorder(block_size=BLOCK, sample_rate=SR), []
+    for i, xb in enumerate(blocks):
+        if i < warmup:
+            host.process(xb)
+            continue
+        if period:
+            period_end.append(eng.row == period - 1)
+        with rec.measure():
+            host.process(xb)
+    return rec, period_end
+
+
 def period_end_split(samples_s: list, period_end: list) -> dict:
     """Host-clock samples split into the blocks that end a period and the
     others: count, median, p99 and max in ms each."""
@@ -791,6 +825,72 @@ def period_end_split(samples_s: list, period_end: list) -> dict:
                      "p99_ms": float(np.percentile(ms, 99) * 1e3),
                      "max_ms": float(ms.max() * 1e3)}
     return out
+
+
+def sleep_cycles(ms: float) -> int:
+    """The ``torch.cuda._sleep`` argument that holds a stream about ``ms``
+    on this card (timed with CUDA events, after one warm-up)."""
+    probe = 1 << 22
+    for _ in range(2):
+        (probe_ms,) = event_ms([lambda: torch.cuda._sleep(probe)])
+    return max(1, int(probe * ms / probe_ms))
+
+
+def snapshots_equal(a, b) -> bool:
+    """Whether two ``CudaTwoStageConvolver`` snapshots hold the same bits."""
+    (fa, ta, ba, ra), (fb, tb, bb, rb) = a, b
+    pairs = ([(getattr(fa, f), getattr(fb, f)) for f in ("segments", "head_overlap",
+                                                          "t0_overlap")]
+             + [(getattr(ta, f), getattr(tb, f)) for f in ("segments", "pre_multiplied",
+                                                           "overlap")]
+             + [(ba[k], bb[k]) for k in sorted(ba)])
+    return ((ra, fa.current, ta.current) == (rb, fb.current, tb.current)
+            and sorted(ba) == sorted(bb) and all(torch.equal(x, y) for x, y in pairs))
+
+
+RACE_MODES = ("as it runs", "side stream held back", "synchronised after every block")
+
+
+def race_gate(engine, blocks: np.ndarray, hold_ms: float) -> dict:
+    """Three runs of a ``CudaTwoStageConvolver`` from ``engine``'s state
+    (clones) through ``HostEngine`` over the numpy ``blocks`` (whole
+    periods): as it runs; with its side stream held back, ``hold_ms`` of
+    ``torch.cuda._sleep`` enqueued there before each period-end block (a
+    missing wait then lets the current stream read a stale or half-written
+    buffer, or overwrite the input the big tail has yet to read); and a twin
+    that synchronises the card after every block (serial by construction).
+    Per run: whether its outputs and its exit snapshot (taken right after
+    the last period end) are bit-equal to the twin's, its period ends, the
+    big-tail graph replays and in-line steps, and its wall seconds.  The
+    caller gates it."""
+    from fft_convolution_tpu_torch.runtime.host import HostEngine
+
+    cycles = sleep_cycles(hold_ms)
+    runs = {}
+    for mode in RACE_MODES:
+        conv = engine.clone()
+        host, p = HostEngine(conv), conv.cfg.period
+        ends, ys = 0, []
+        t0 = time.perf_counter()
+        for xb in blocks:
+            if conv.row == p - 1:
+                ends += 1
+                if mode == "side stream held back":
+                    with torch.cuda.stream(conv.side_stream):
+                        torch.cuda._sleep(cycles)
+            ys.append(host.process(xb))
+            if mode == "synchronised after every block":
+                torch.cuda.synchronize()
+        snap = conv.snapshot()
+        torch.cuda.synchronize()
+        runs[mode] = (np.stack(ys), snap, {"period_ends": ends, "replays": conv.tail_replays,
+                                           "inline": conv.tail_inline,
+                                           "wall_s": time.perf_counter() - t0})
+    y_ref, snap_ref, _ = runs[RACE_MODES[-1]]
+    return {mode: {"outputs_bit_equal": bool(np.array_equal(y, y_ref)),
+                   "snapshot_bit_equal": snapshots_equal(snap, snap_ref), **rec}
+            for mode, (y, snap, rec) in runs.items()} | {"hold_ms": hold_ms,
+                                                        "sleep_cycles": cycles}
 
 
 def host_runtime(dev, counts: Counts, ir: np.ndarray, ir_b: np.ndarray, x_host: np.ndarray,
@@ -807,7 +907,6 @@ def host_runtime(dev, counts: Counts, ir: np.ndarray, ir_b: np.ndarray, x_host: 
     from fft_convolution_tpu_torch.runtime.stream import StreamingConvolver
     from fft_convolution_tpu_torch.serving import CudaCrossfadeConvolver, CudaFFTConvolver
     from fft_convolution_tpu_torch.utils import checkpoint
-    from fft_convolution_tpu_torch.utils.profiling import LatencyRecorder
 
     record = {}
     t0 = time.perf_counter()
@@ -832,26 +931,51 @@ def host_runtime(dev, counts: Counts, ir: np.ndarray, ir_b: np.ndarray, x_host: 
         print(f"{label} HostEngine bit-equal to the card-tensor path: {equal}", flush=True)
         record[f"{label} adapter"] = {"max_abs_err": err, "bit_equal": equal}
 
+    # B2's race gate: the big tail on the wrapper's side stream, as it runs
+    # and held back, against a twin synchronised after every block
+    two = engines["B2"]
+    p = two.cfg.period
+    race_blocks = x_host[:(-two.row) % p + RACE_PERIODS * p]  # ends on a period end
+    race = counts.drive("B2 race gate, three runs",
+                        lambda: race_gate(two, race_blocks, RACE_HOLD_MS),
+                        {"B2": len(RACE_MODES) * len(race_blocks)})
+    for mode in RACE_MODES:
+        r = race[mode]
+        print(f"B2 race gate, {mode}: {len(race_blocks)} numpy blocks through HostEngine, "
+              f"{r['period_ends']} period ends, {r['replays']} big-tail graph replays on the "
+              f"side stream, {r['inline']} in line; outputs bit-equal to the synchronised "
+              f"twin: {r['outputs_bit_equal']}, exit snapshot: {r['snapshot_bit_equal']}; "
+              f"{r['wall_s']!r} s", flush=True)
+        if not (r["outputs_bit_equal"] and r["snapshot_bit_equal"]):
+            fail(f"B2 race gate, {mode}: differs from the twin synchronised after every block")
+        if r["replays"] != r["period_ends"] or r["inline"] or r["period_ends"] < RACE_PERIODS:
+            fail(f"B2 race gate, {mode}: {r['replays']} replays and {r['inline']} in-line "
+                 f"steps over {r['period_ends']} period ends")
+    held = race["side stream held back"]
+    print(f"B2 race gate: the side stream held back {RACE_HOLD_MS!r} ms "
+          f"({race['sleep_cycles']} sleep cycles) before each period end", flush=True)
+    if held["wall_s"] < (held["period_ends"] - 1) * RACE_HOLD_MS / 1e3:
+        fail(f"B2 race gate: the held-back run took {held['wall_s']!r} s, so the hold did not "
+             "delay the big tail")
+    record["B2 race gate"] = race
+
     # host-callback latency: a numpy block in, a numpy block out, copies and sync included
     lat = {}
-    two = engines["B2"]
-    period_end = []  # B2: whether each timed block ends a period (runs the big tail)
+    row0 = two.row
+    blocks = x_host[:HOST_LATENCY_WARMUP + HOST_LATENCY_BLOCKS]
     for label in ("B1", "B1p", "B2", "B3"):
         host = HostEngine(engines[label])
-        rec = LatencyRecorder(block_size=BLOCK, sample_rate=SR)
-        blocks = x_host[:HOST_LATENCY_WARMUP + HOST_LATENCY_BLOCKS]
-
-        def callbacks(host=host, rec=rec, blocks=blocks, label=label):
-            for i, xb in enumerate(blocks):
-                if i < HOST_LATENCY_WARMUP:
-                    host.process(xb)
-                    continue
-                if label == "B2":
-                    period_end.append(two.row == two.cfg.period - 1)
-                with rec.measure():
-                    host.process(xb)
-
-        counts.drive(f"{label} host callbacks", callbacks, {label: len(blocks)})
+        replays = two.tail_replays
+        rec, period_end = counts.drive(
+            f"{label} host callbacks",
+            lambda: host_callbacks(host, blocks, HOST_LATENCY_WARMUP), {label: len(blocks)})
+        if label == "B2":
+            ends = (row0 + len(blocks)) // p  # the blocks at row p - 1
+            print(f"B2 host callbacks: {two.tail_replays - replays} big-tail graph replays "
+                  f"over {ends} period ends, {two.tail_inline} in line", flush=True)
+            if two.tail_replays - replays != ends or two.tail_inline:
+                fail("B2 host callbacks: the big tail did not run once a period end as a "
+                     "graph replay")
         rep = rec.report()
         rep["max_ms"] = max(rec.samples_s) * 1e3
         card = timing[label]["kernel"]
@@ -870,16 +994,23 @@ def host_runtime(dev, counts: Counts, ir: np.ndarray, ir_b: np.ndarray, x_host: 
     record["host_callback_latency"] = lat
 
     # B2's big-tail step alone (the wrapper's period end: the uniform engine
-    # at the tail block over the period input), CUDA events on a copy
+    # at the tail block over the period input), CUDA events: the eager ops on
+    # a copy of the tail state, and the wrapper's graph replay on a clone
     step = two.clone()
     tail_in = step.buffers["tail_input"].reshape(-1)
+    eager = step.tail_state.clone()
+    graph = step._graphs[0][0]
     for _ in range(3):
-        uniform.process_block(step.cfg.tail, step.tail_state, tail_in)
+        uniform.process_block(step.cfg.tail, eager, tail_in)
+        graph.replay()
     torch.cuda.synchronize()
-    tail_ms = event_ms([lambda: uniform.process_block(step.cfg.tail, step.tail_state, tail_in)]
+    tail_ms = event_ms([lambda: uniform.process_block(step.cfg.tail, eager, tail_in)]
                        * TAIL_STEP_REPS)
+    replay_ms = event_ms([graph.replay] * TAIL_STEP_REPS)
     lat["B2"]["big_tail_step_event_ms"] = {"median": statistics.median(tail_ms),
                                            "max": max(tail_ms), "reps": len(tail_ms)}
+    lat["B2"]["big_tail_replay_event_ms"] = {"median": statistics.median(replay_ms),
+                                             "max": max(replay_ms), "reps": len(replay_ms)}
     split = lat["B2"]["split"]
     for kind in ("period_end", "other"):
         r = split[kind]
@@ -887,7 +1018,8 @@ def host_runtime(dev, counts: Counts, ir: np.ndarray, ir_b: np.ndarray, x_host: 
               f"{r['p50_ms']!r} ms, p99 {r['p99_ms']!r} ms, max {r['max_ms']!r} ms", flush=True)
     print(f"B2 big-tail step alone (tail block {two.cfg.tail_block}, "
           f"{two.cfg.tail.seg_count} segments): CUDA-event median {statistics.median(tail_ms)!r}"
-          f" ms, max {max(tail_ms)!r} ms over {len(tail_ms)}", flush=True)
+          f" ms, max {max(tail_ms)!r} ms over {len(tail_ms)}; as the wrapper's graph replay: "
+          f"median {statistics.median(replay_ms)!r} ms, max {max(replay_ms)!r} ms", flush=True)
     lat["B2"]["big_tail_step_bound"] = shares(
         "B2 big-tail step alone", roofline().stream_conv_cost(two.cfg.tail, 1), crd,
         event=statistics.median(tail_ms) / 1e3)
@@ -1285,9 +1417,11 @@ def main() -> None:
     # into y over blocks 128-191 (IR taps >= 16384), which the float64
     # check below covers
     big_tail_runs = (-two.tail_state.current) % two.cfg.tail.seg_count
-    print(f"big tail ran {big_tail_runs} times", flush=True)
-    if big_tail_runs != N_TWO_STAGE // two.cfg.period:
-        fail("big tail did not run once per period")
+    print(f"big tail ran {big_tail_runs} times: {two.tail_replays} CUDA-graph replays on the "
+          f"wrapper's side stream, {two.tail_inline} in line", flush=True)
+    if not big_tail_runs == two.tail_replays == N_TWO_STAGE // two.cfg.period \
+            or two.tail_inline:
+        fail("big tail did not run once per period as a graph replay on the side stream")
     phase_done("2 B1/B2 paths")
 
     # ---- 3. kernel path vs plain path on the card -----------------------

@@ -46,6 +46,7 @@ _SIGNATURES = {
 }
 
 _lib: ctypes.CDLL | None = None
+_kernels: dict = {}
 
 
 def _nvcc() -> str:
@@ -127,6 +128,15 @@ def library() -> ctypes.CDLL:
         lib.fdl_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def kernel(name: str):
+    """The loaded library's function ``name`` (argument types set), looked
+    up once."""
+    fn = _kernels.get(name)
+    if fn is None:
+        fn = _kernels[name] = getattr(library(), name)
+    return fn
 
 
 def check(err: int, name: str) -> None:

@@ -202,6 +202,29 @@ def process_block(cfg: UniformConfig, state: UniformState,
     return y
 
 
+def process_block_at(cfg: UniformConfig, state: UniformState, head: torch.Tensor,
+                     x: torch.Tensor, out: torch.Tensor) -> None:
+    """:func:`process_block` with the ring head read from, and advanced in,
+    ``head`` (int64 ``[1]`` on the state's device) in place of the host int
+    ``state.current``, and ``y`` written into ``out``.  No host value enters
+    the step and every tensor it updates is written in place, so a CUDA graph
+    captured once replays it at any ring position
+    (``serving.CudaTwoStageConvolver``'s big tail).  The same operations as
+    :func:`process_block`, so the same bits.  The caller keeps
+    ``state.current`` in step with ``head``; ``active_segs`` must be nonzero
+    and ``input_buffer`` empty (a full-block stream)."""
+    active = state.active_segs
+    spec = torch.fft.rfft(x, n=cfg.fft_size)
+    state.segments.index_copy_(0, head, spec[None])
+    rows = (head + torch.arange(1, active, device=head.device)) % active
+    state.pre_multiplied.copy_((state.segments_ir[1:active] * state.segments[rows]).sum(dim=-2))
+    fft_buffer = torch.fft.irfft(state.pre_multiplied + spec * state.segments_ir[0],
+                                 n=cfg.fft_size)
+    torch.add(fft_buffer[:cfg.block_size], state.overlap, out=out)
+    state.overlap.copy_(fft_buffer[cfg.block_size:])
+    head.sub_(1).remainder_(active)
+
+
 def meta_size(seg_count: int, t: int) -> int:
     """Block-axis DFT length of a ``t``-block stream: the smallest power of
     two that holds the ``seg_count - 1`` history rows and the ``t`` new

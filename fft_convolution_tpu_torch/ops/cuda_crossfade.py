@@ -15,8 +15,11 @@ ring (both tables at the ring's segment count).
 PyTorch version :func:`block_step_plain` only for CPU tensors; it never falls
 back.  ``block_step.launches`` counts steps launched (one CUDA launch
 each).  The state is updated in place, and carries the kernel's arrival
-counter (``ticket``, see :func:`.cuda_engine.step_ticket`); the crossfader
-state is returned.
+counter and partial sums (``ticket``, ``partial``, see
+:func:`.cuda_engine.step_scratch`); the crossfader state is returned.  The
+serving wrapper checks its operands with :func:`check_operands` where it
+sets them and launches through :func:`block_step_prepared` (as
+:mod:`.cuda_engine`'s B1).
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ import torch
 
 from .. import _build
 from ..models import crossfade
-from .cuda_engine import check_block, require, rolled_mac, step_split, step_ticket
+from .cuda_engine import (check_block, check_scratch, require, rolled_mac, step_scratch,
+                          step_split, tensor_device)
 from .fft import twiddles
 
 
@@ -44,7 +48,8 @@ class XfadeState:
     overlap_a: torch.Tensor  # f32 [B]
     overlap_b: torch.Tensor  # f32 [B]
     current: int             # ring head
-    ticket: torch.Tensor | None = None  # int32 [1] arrival counter, made at the first launch
+    ticket: torch.Tensor | None = None   # int32 [1] arrival counter, made at the first launch
+    partial: torch.Tensor | None = None  # complex64 partial sums, likewise (step_scratch)
 
     def clone(self) -> "XfadeState":
         return XfadeState(self.segments.clone(), self.overlap_a.clone(),
@@ -83,6 +88,51 @@ def block_step_plain(consts: XfadeConsts, state: XfadeState,
     return crossfade.mix_block(cf_cfg, cf, ya, yb)
 
 
+def check_operands(consts: XfadeConsts, state: XfadeState, device) -> None:
+    """Raise unless both tables, twiddles, ring, overlaps, ``current`` and
+    the scratch where made are what kernel B3 reads on ``device``."""
+    device = tensor_device(device)
+    n, nb = state.segments.shape
+    b = nb - 1
+    check_block(b)
+    require(state.segments, "segments", (n, nb), torch.complex64, device)
+    require(consts.ir_a, "ir_a", (n, nb), torch.complex64, device)
+    require(consts.ir_b, "ir_b", (n, nb), torch.complex64, device)
+    require(consts.tw, "tw", (2 * b, 2), torch.float32, device)
+    require(state.overlap_a, "overlap_a", (b,), torch.float32, device)
+    require(state.overlap_b, "overlap_b", (b,), torch.float32, device)
+    if not 0 <= state.current < n:
+        raise ValueError(f"current {state.current} outside the ring of {n}")
+    check_scratch(state, 2, device)
+
+
+def _launch(consts: XfadeConsts, state: XfadeState, cf_cfg: crossfade.CrossfaderConfig,
+            cf: crossfade.CrossfaderState, x: torch.Tensor) -> torch.Tensor:
+    """Launch kernel B3 over checked operands and decrement ``current``;
+    checks the host int ``current`` only."""
+    if x.device.type != "cuda":
+        raise ValueError(f"block_step: no kernel for device {x.device}")
+    n, nb = state.segments.shape
+    b, cur = nb - 1, state.current
+    if not 0 <= cur < n:
+        raise ValueError(f"current {cur} outside the ring of {n}")
+    ticket, partial = step_scratch(state, 2, x.device)
+    rows, grid = step_split(n)
+    y = torch.empty(b, device=x.device)
+    err = _build.kernel("fdl_b3_step")(
+        x.data_ptr(), state.segments.data_ptr(), consts.ir_a.data_ptr(),
+        consts.ir_b.data_ptr(), consts.tw.data_ptr(), partial.data_ptr(),
+        ticket.data_ptr(), y.data_ptr(), state.overlap_a.data_ptr(),
+        state.overlap_b.data_ptr(),
+        n, b, cur, rows, grid, int(cf.approaching),
+        int(cf.target == crossfade.TARGET_B), cf.counter, cf_cfg.fading_samples,
+        cf_cfg.mixer_id, float(cf.mix_value), float(cf.step),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "fdl_b3_step")
+    state.current = cur - 1 if cur > 0 else n - 1
+    return y
+
+
 def block_step(consts: XfadeConsts, state: XfadeState,
                cf_cfg: crossfade.CrossfaderConfig, cf: crossfade.CrossfaderState,
                x: torch.Tensor) -> tuple[crossfade.CrossfaderState, torch.Tensor]:
@@ -92,36 +142,24 @@ def block_step(consts: XfadeConsts, state: XfadeState,
         return block_step_plain(consts, state, cf_cfg, cf, x)
     if x.device.type != "cuda":
         raise ValueError(f"block_step: no kernel for device {x.device}")
-    n, nb = state.segments.shape
-    b = nb - 1
-    check_block(b)
-    dev = x.device
-    require(x, "x", (b,), torch.float32, dev)
-    require(state.segments, "segments", (n, nb), torch.complex64, dev)
-    require(consts.ir_a, "ir_a", (n, nb), torch.complex64, dev)
-    require(consts.ir_b, "ir_b", (n, nb), torch.complex64, dev)
-    require(consts.tw, "tw", (2 * b, 2), torch.float32, dev)
-    require(state.overlap_a, "overlap_a", (b,), torch.float32, dev)
-    require(state.overlap_b, "overlap_b", (b,), torch.float32, dev)
-    if not 0 <= state.current < n:
-        raise ValueError(f"current {state.current} outside the ring of {n}")
-    ticket = step_ticket(state, dev)
-    rows, grid = step_split(n)
-    partial = torch.empty((2, 1 + grid, nb), dtype=torch.complex64, device=dev)
-    y = torch.empty(b, device=dev)
-    err = _build.library().fdl_b3_step(
-        x.data_ptr(), state.segments.data_ptr(), consts.ir_a.data_ptr(),
-        consts.ir_b.data_ptr(), consts.tw.data_ptr(), partial.data_ptr(),
-        ticket.data_ptr(), y.data_ptr(), state.overlap_a.data_ptr(),
-        state.overlap_b.data_ptr(),
-        n, b, state.current, rows, grid, int(cf.approaching),
-        int(cf.target == crossfade.TARGET_B), cf.counter, cf_cfg.fading_samples,
-        cf_cfg.mixer_id, float(cf.mix_value), float(cf.step),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "fdl_b3_step")
+    require(x, "x", (state.segments.shape[1] - 1,), torch.float32, x.device)
+    check_operands(consts, state, x.device)
+    y = _launch(consts, state, cf_cfg, cf, x)
     block_step.launches += 1
-    state.current = state.current - 1 if state.current > 0 else n - 1
-    return crossfade.advance(cf_cfg, cf, b), y
+    return crossfade.advance(cf_cfg, cf, y.shape[0]), y
+
+
+def block_step_prepared(consts: XfadeConsts, state: XfadeState,
+                        cf_cfg: crossfade.CrossfaderConfig, cf: crossfade.CrossfaderState,
+                        x: torch.Tensor) -> tuple[crossfade.CrossfaderState, torch.Tensor]:
+    """:func:`block_step` over tables and state that passed
+    :func:`check_operands` where they were set, and an ``x`` the caller
+    made (``serving._block``); checks only ``current``."""
+    if x.device.type == "cpu":
+        return block_step_plain(consts, state, cf_cfg, cf, x)
+    y = _launch(consts, state, cf_cfg, cf, x)
+    block_step.launches += 1
+    return crossfade.advance(cf_cfg, cf, y.shape[0]), y
 
 
 block_step.launches = 0

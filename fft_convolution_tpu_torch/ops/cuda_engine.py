@@ -13,8 +13,15 @@ PyTorch version :func:`block_step_plain` only for CPU tensors; it never falls
 back.  ``block_step.launches`` counts steps launched (one CUDA launch each,
 over ``csrc/fdl_step.cuh`` at one table).  The state is updated in place:
 the kernel writes the ring row and the overlap where they lie; the state
-also carries the kernel's arrival counter (``ticket``, see
-:func:`step_ticket`).
+also carries the kernel's arrival counter and partial-sum scratch
+(``ticket``, ``partial``, see :func:`step_scratch`).
+
+:func:`block_step` checks every operand on every call, for direct callers.
+A serving wrapper owns its table and state, so it checks them with
+:func:`check_operands` where it sets them (construction, ``update``,
+``restore``) and launches through :func:`block_step_prepared`, which
+checks only the host int ``current``; its input comes through
+``serving._block``.  Both count in ``block_step.launches``.
 
 Kernel B1p (:func:`block_step_packed`, ``fdl_b1p_step`` in the same source)
 is the step over bf16 storage — counterpart of ``pallas_engine.py``'s
@@ -22,13 +29,14 @@ is the step over bf16 storage — counterpart of ``pallas_engine.py``'s
 ``torch.bfloat16 [N, B+1, 2]`` (native bf16 pairs; the JAX package's
 uint32 words are a TPU layout fix), rounded to nearest even on store; the
 current block's term stays float32 on the ring side.  It counts its own
-launches in ``block_step_packed.launches``; :func:`block_step_plain` serves
-both storages.
+launches in ``block_step_packed.launches`` (:func:`block_step_packed_prepared`
+too); :func:`block_step_plain` serves both storages.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -78,7 +86,8 @@ class FDLState:
     segments: torch.Tensor  # input-spectra ring, in the table's storage
     overlap: torch.Tensor   # f32 [B]
     current: int            # ring head
-    ticket: torch.Tensor | None = None  # int32 [1] arrival counter, made at the first launch
+    ticket: torch.Tensor | None = None   # int32 [1] arrival counter, made at the first launch
+    partial: torch.Tensor | None = None  # complex64 partial sums, likewise (step_scratch)
 
     def clone(self) -> "FDLState":
         return FDLState(self.segments.clone(), self.overlap.clone(), self.current)
@@ -104,6 +113,7 @@ def to_uniform(fstate: FDLState, template: UniformState) -> UniformState:
     return out
 
 
+@functools.cache
 def step_split(n: int) -> tuple[int, int]:
     """``(rows, grid)`` of the one-launch kernels B1-B3: the ``n - 1``
     ring rows other than ``current`` in ``grid`` MAC blocks of ``rows`` rows,
@@ -122,8 +132,41 @@ def step_ticket(state, device: torch.device) -> torch.Tensor:
     start without one, so two states never share a counter."""
     if state.ticket is None:
         state.ticket = torch.zeros(1, dtype=torch.int32, device=device)
-    require(state.ticket, "ticket", (1,), torch.int32, device)
     return state.ticket
+
+
+def step_scratch(state, heads: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(ticket, partial)`` of a one-launch kernel (B1-B3) over ``heads``
+    tables, kept in the state: the arrival counter (:func:`step_ticket`)
+    and the partial sums ``complex64 [heads, 1 + grid, B+1]`` that the
+    step's thread blocks write and the last to arrive adds up, within one
+    launch.  Both are made at the state's first launch and never shared:
+    fresh states and clones start without them."""
+    if state.partial is None:
+        n, nb = state.segments.shape[:2]
+        state.partial = torch.empty((heads, 1 + step_split(n)[1], nb), dtype=torch.complex64,
+                                    device=device)
+    return step_ticket(state, device), state.partial
+
+
+def check_scratch(state, heads: int, device: torch.device) -> None:
+    """Raise unless the state's counter and partial sums, where made, are
+    the ones :func:`step_scratch` makes."""
+    n, nb = state.segments.shape[:2]
+    if state.ticket is not None:
+        require(state.ticket, "ticket", (1,), torch.int32, device)
+    if state.partial is not None:
+        require(state.partial, "partial", (heads, 1 + step_split(n)[1], nb), torch.complex64,
+                device)
+
+
+def tensor_device(device) -> torch.device:
+    """``device`` as its tensors report it: a bare ``"cuda"`` names the
+    current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def require(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype,
@@ -168,35 +211,55 @@ def block_step_plain(consts: FDLConsts, state: FDLState, x: torch.Tensor) -> tor
     return y
 
 
-def _launch(name: str, dtype: torch.dtype, consts: FDLConsts, state: FDLState,
-            x: torch.Tensor) -> torch.Tensor:
-    """Check the operands, launch ``name`` and decrement ``current``."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {x.device}")
+def check_operands(consts: FDLConsts, state: FDLState, dtype: torch.dtype,
+                   device) -> None:
+    """Raise unless table, twiddles, ring, overlap, ``current`` and the
+    scratch where made are what kernel B1 (``dtype`` complex64) or B1p
+    (bfloat16) reads on ``device``."""
+    device = tensor_device(device)
     n, nb = state.segments.shape[:2]
     b = nb - 1
     check_block(b)
-    dev = x.device
     shape = (n, nb) if dtype == torch.complex64 else (n, nb, 2)
-    require(x, "x", (b,), torch.float32, dev)
-    require(state.segments, "segments", shape, dtype, dev)
-    require(consts.ir, "ir", shape, dtype, dev)
-    require(consts.tw, "tw", (2 * b, 2), torch.float32, dev)
-    require(state.overlap, "overlap", (b,), torch.float32, dev)
+    require(state.segments, "segments", shape, dtype, device)
+    require(consts.ir, "ir", shape, dtype, device)
+    require(consts.tw, "tw", (2 * b, 2), torch.float32, device)
+    require(state.overlap, "overlap", (b,), torch.float32, device)
     if not 0 <= state.current < n:
         raise ValueError(f"current {state.current} outside the ring of {n}")
-    ticket = step_ticket(state, dev)
+    check_scratch(state, 1, device)
+
+
+def _launch(name: str, consts: FDLConsts, state: FDLState, x: torch.Tensor) -> torch.Tensor:
+    """Launch ``name`` over checked operands and decrement ``current``;
+    checks the host int ``current`` only."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    n, nb = state.segments.shape[:2]
+    cur = state.current
+    if not 0 <= cur < n:
+        raise ValueError(f"current {cur} outside the ring of {n}")
+    ticket, partial = step_scratch(state, 1, x.device)
     rows, grid = step_split(n)
-    partial = torch.empty((1, 1 + grid, nb), dtype=torch.complex64, device=dev)
-    y = torch.empty(b, device=dev)
-    err = getattr(_build.library(), name)(
+    y = torch.empty(nb - 1, device=x.device)
+    err = _build.kernel(name)(
         x.data_ptr(), state.segments.data_ptr(), consts.ir.data_ptr(),
         consts.tw.data_ptr(), partial.data_ptr(), ticket.data_ptr(), y.data_ptr(),
-        state.overlap.data_ptr(), n, b, state.current, rows, grid,
-        torch.cuda.current_stream(dev).cuda_stream)
+        state.overlap.data_ptr(), n, nb - 1, cur, rows, grid,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, name)
-    state.current = state.current - 1 if state.current > 0 else n - 1
+    state.current = cur - 1 if cur > 0 else n - 1
     return y
+
+
+def _checked(name: str, dtype: torch.dtype, consts: FDLConsts, state: FDLState,
+             x: torch.Tensor) -> torch.Tensor:
+    """Check every operand, then :func:`_launch`."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    require(x, "x", (state.segments.shape[1] - 1,), torch.float32, x.device)
+    check_operands(consts, state, dtype, x.device)
+    return _launch(name, consts, state, x)
 
 
 def block_step(consts: FDLConsts, state: FDLState, x: torch.Tensor) -> torch.Tensor:
@@ -204,7 +267,18 @@ def block_step(consts: FDLConsts, state: FDLState, x: torch.Tensor) -> torch.Ten
     CUDA tensors launch kernel B1, CPU tensors take :func:`block_step_plain`."""
     if x.device.type == "cpu":
         return block_step_plain(consts, state, x)
-    y = _launch("fdl_b1_step", torch.complex64, consts, state, x)
+    y = _checked("fdl_b1_step", torch.complex64, consts, state, x)
+    block_step.launches += 1
+    return y
+
+
+def block_step_prepared(consts: FDLConsts, state: FDLState, x: torch.Tensor) -> torch.Tensor:
+    """:func:`block_step` over a table and state that passed
+    :func:`check_operands` where they were set, and an ``x`` the caller
+    made (``serving._block``); checks only ``current``."""
+    if x.device.type == "cpu":
+        return block_step_plain(consts, state, x)
+    y = _launch("fdl_b1_step", consts, state, x)
     block_step.launches += 1
     return y
 
@@ -214,7 +288,18 @@ def block_step_packed(consts: FDLConsts, state: FDLState, x: torch.Tensor) -> to
     tensors launch kernel B1p, CPU tensors take :func:`block_step_plain`."""
     if x.device.type == "cpu":
         return block_step_plain(consts, state, x)
-    y = _launch("fdl_b1p_step", torch.bfloat16, consts, state, x)
+    y = _checked("fdl_b1p_step", torch.bfloat16, consts, state, x)
+    block_step_packed.launches += 1
+    return y
+
+
+def block_step_packed_prepared(consts: FDLConsts, state: FDLState,
+                               x: torch.Tensor) -> torch.Tensor:
+    """:func:`block_step_packed` as :func:`block_step_prepared` is
+    :func:`block_step`."""
+    if x.device.type == "cpu":
+        return block_step_plain(consts, state, x)
+    y = _launch("fdl_b1p_step", consts, state, x)
     block_step_packed.launches += 1
     return y
 

@@ -19,8 +19,11 @@ the ring's row count.
 PyTorch version :func:`block_step_plain` only for CPU tensors; it never falls
 back.  ``block_step.launches`` counts steps launched (one CUDA launch
 each).  State and period buffers are updated in place; the state also
-carries the kernel's arrival counter (``ticket``, see
-:func:`.cuda_engine.step_ticket`).
+carries the kernel's arrival counter and partial sums (``ticket``,
+``partial``, see :func:`.cuda_engine.step_scratch`).  The serving wrapper
+checks its operands with :func:`check_operands` where it sets them and
+launches through :func:`block_step_prepared` (as
+:mod:`.cuda_engine`'s B1).
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ import dataclasses
 import torch
 
 from .. import _build
-from .cuda_engine import check_block, require, rolled_mac, step_split, step_ticket
+from .cuda_engine import (check_block, check_scratch, require, rolled_mac, step_scratch,
+                          step_split, tensor_device)
 from .fft import twiddles
 
 BUFFERS = ("tail_output0", "precalc0", "tail_output", "precalc", "tail_input")
@@ -49,7 +53,8 @@ class FusedState:
     head_overlap: torch.Tensor  # f32 [B]
     t0_overlap: torch.Tensor    # f32 [B]
     current: int                # ring head
-    ticket: torch.Tensor | None = None  # int32 [1] arrival counter, made at the first launch
+    ticket: torch.Tensor | None = None   # int32 [1] arrival counter, made at the first launch
+    partial: torch.Tensor | None = None  # complex64 partial sums, likewise (step_scratch)
 
     def clone(self) -> "FusedState":
         return FusedState(self.segments.clone(), self.head_overlap.clone(),
@@ -90,6 +95,57 @@ def block_step_plain(consts: FusedConsts, state: FusedState, bufs: dict, row: in
     return y
 
 
+def check_operands(consts: FusedConsts, state: FusedState, bufs: dict, device) -> None:
+    """Raise unless tables, twiddles, ring, overlaps, ``current``, the
+    period buffers ``[period, B]`` named in :data:`BUFFERS` and the
+    scratch where made are what kernel B2 reads on ``device``."""
+    device = tensor_device(device)
+    n, nb = state.segments.shape
+    b = nb - 1
+    check_block(b)
+    p = bufs["precalc"].shape[0]
+    require(state.segments, "segments", (n, nb), torch.complex64, device)
+    require(consts.h_ir, "h_ir", (n, nb), torch.complex64, device)
+    require(consts.t_ir, "t_ir", (n, nb), torch.complex64, device)
+    require(consts.tw, "tw", (2 * b, 2), torch.float32, device)
+    require(state.head_overlap, "head_overlap", (b,), torch.float32, device)
+    require(state.t0_overlap, "t0_overlap", (b,), torch.float32, device)
+    for k in BUFFERS:
+        require(bufs[k], k, (p, b), torch.float32, device)
+    if not 0 <= state.current < n:
+        raise ValueError(f"current {state.current} outside the ring of {n}")
+    check_scratch(state, 2, device)
+
+
+def _launch(consts: FusedConsts, state: FusedState, bufs: dict, row: int,
+            x: torch.Tensor) -> torch.Tensor:
+    """Launch kernel B2 over checked operands and decrement ``current``;
+    checks the host ints ``current`` and ``row`` only."""
+    if x.device.type != "cuda":
+        raise ValueError(f"block_step: no kernel for device {x.device}")
+    n, nb = state.segments.shape
+    b, cur = nb - 1, state.current
+    if not 0 <= cur < n:
+        raise ValueError(f"current {cur} outside the ring of {n}")
+    if not 0 <= row < bufs["precalc"].shape[0]:
+        raise ValueError(f"row {row} outside the period of {bufs['precalc'].shape[0]}")
+    ticket, partial = step_scratch(state, 2, x.device)
+    rows, grid = step_split(n)
+    y = torch.empty(b, device=x.device)
+    at = row * b * 4  # byte offset of the period row in each [period, B] f32 buffer
+    err = _build.kernel("fdl_b2_step")(
+        x.data_ptr(), state.segments.data_ptr(), consts.h_ir.data_ptr(),
+        consts.t_ir.data_ptr(), consts.tw.data_ptr(), partial.data_ptr(),
+        ticket.data_ptr(), y.data_ptr(), state.head_overlap.data_ptr(),
+        state.t0_overlap.data_ptr(),
+        bufs["tail_output0"].data_ptr() + at, bufs["tail_input"].data_ptr() + at,
+        bufs["precalc0"].data_ptr() + at, bufs["precalc"].data_ptr() + at,
+        n, b, cur, rows, grid, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "fdl_b2_step")
+    state.current = cur - 1 if cur > 0 else n - 1
+    return y
+
+
 def block_step(consts: FusedConsts, state: FusedState, bufs: dict, row: int,
                x: torch.Tensor) -> torch.Tensor:
     """One fused head+tail0 step at period row ``row``; returns the finished
@@ -100,39 +156,22 @@ def block_step(consts: FusedConsts, state: FusedState, bufs: dict, row: int,
         return block_step_plain(consts, state, bufs, row, x)
     if x.device.type != "cuda":
         raise ValueError(f"block_step: no kernel for device {x.device}")
-    n, nb = state.segments.shape
-    b = nb - 1
-    check_block(b)
-    dev = x.device
-    p = bufs["precalc"].shape[0]
-    require(x, "x", (b,), torch.float32, dev)
-    require(state.segments, "segments", (n, nb), torch.complex64, dev)
-    require(consts.h_ir, "h_ir", (n, nb), torch.complex64, dev)
-    require(consts.t_ir, "t_ir", (n, nb), torch.complex64, dev)
-    require(consts.tw, "tw", (2 * b, 2), torch.float32, dev)
-    require(state.head_overlap, "head_overlap", (b,), torch.float32, dev)
-    require(state.t0_overlap, "t0_overlap", (b,), torch.float32, dev)
-    for k in BUFFERS:
-        require(bufs[k], k, (p, b), torch.float32, dev)
-    if not 0 <= state.current < n:
-        raise ValueError(f"current {state.current} outside the ring of {n}")
-    if not 0 <= row < p:
-        raise ValueError(f"row {row} outside the period of {p}")
-    ticket = step_ticket(state, dev)
-    rows, grid = step_split(n)
-    partial = torch.empty((2, 1 + grid, nb), dtype=torch.complex64, device=dev)
-    y = torch.empty(b, device=dev)
-    err = _build.library().fdl_b2_step(
-        x.data_ptr(), state.segments.data_ptr(), consts.h_ir.data_ptr(),
-        consts.t_ir.data_ptr(), consts.tw.data_ptr(), partial.data_ptr(),
-        ticket.data_ptr(), y.data_ptr(), state.head_overlap.data_ptr(),
-        state.t0_overlap.data_ptr(),
-        bufs["tail_output0"][row].data_ptr(), bufs["tail_input"][row].data_ptr(),
-        bufs["precalc0"][row].data_ptr(), bufs["precalc"][row].data_ptr(),
-        n, b, state.current, rows, grid, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "fdl_b2_step")
+    require(x, "x", (state.segments.shape[1] - 1,), torch.float32, x.device)
+    check_operands(consts, state, bufs, x.device)
+    y = _launch(consts, state, bufs, row, x)
     block_step.launches += 1
-    state.current = state.current - 1 if state.current > 0 else n - 1
+    return y
+
+
+def block_step_prepared(consts: FusedConsts, state: FusedState, bufs: dict, row: int,
+                        x: torch.Tensor) -> torch.Tensor:
+    """:func:`block_step` over tables, state and buffers that passed
+    :func:`check_operands` where they were set, and an ``x`` the caller
+    made (``serving._block``); checks only ``current`` and ``row``."""
+    if x.device.type == "cpu":
+        return block_step_plain(consts, state, bufs, row, x)
+    y = _launch(consts, state, bufs, row, x)
+    block_step.launches += 1
     return y
 
 

@@ -19,7 +19,10 @@ one), and the median CUDA-event span of one ``process`` call
 and the host's time to enqueue it (``chip_smoke.latency``; B4: 32 timed
 calls after 4), and each path's ``bound_us``, ``bound_by`` and ``share``
 of the device time (``chip_smoke.shares``, gated <= 1, which also prints
-them).  The bounds come from THIS checkout's
+them); for B1, B1p, B2 and B3 also the host-callback latency of
+``chip_smoke.py`` phase 16 (``runtime.host.HostEngine``, numpy blocks in
+and out, 2000 timed after 64: median, p99 and max ms; B2's split into the
+blocks that end a tail period and the others).  The bounds come from THIS checkout's
 ``fft_convolution_tpu_torch/utils/roofline.py``, loaded by path before
 ``DIR`` goes on ``sys.path``, so every checkout is divided by one
 yardstick.  To compare two checkouts on one card, run both in one machine
@@ -36,10 +39,11 @@ import sys
 import numpy as np
 import torch
 
-from chip_smoke import (BLOCK, IR_SECONDS, PROFILE_CALL_WARMUP, PROFILE_CALLS,
-                        PROFILE_STEPS, PROFILE_WARMUP, SR, STREAM_CALL, STREAM_SECONDS,
-                        STREAM_TIMED, STREAM_WARMUP, T_BLOCKS, card, latency, profile_steps,
-                        roofline, shares)
+from chip_smoke import (BLOCK, HOST_LATENCY_BLOCKS, HOST_LATENCY_WARMUP, IR_SECONDS,
+                        PROFILE_CALL_WARMUP, PROFILE_CALLS, PROFILE_STEPS, PROFILE_WARMUP, SR,
+                        STREAM_CALL, STREAM_SECONDS, STREAM_TIMED, STREAM_WARMUP, T_BLOCKS, card,
+                        host_callbacks, latency, period_end_split, profile_steps, roofline,
+                        shares)
 
 
 def _latency(r: dict) -> dict:
@@ -98,6 +102,16 @@ def main() -> None:
                       "cuda_launches_per_step": prof["cuda_launches_per_step"],
                       "device_us_by_kernel": prof["by_name"], **bounded(label, cost, prof),
                       **_latency(latency(conv, xs))}
+    from fft_convolution_tpu_torch.runtime.host import HostEngine
+
+    x_host = xs[:HOST_LATENCY_WARMUP + HOST_LATENCY_BLOCKS].cpu().numpy()
+    for label, (conv, _, _) in steps.items():
+        rec, period_end = host_callbacks(HostEngine(conv), x_host, HOST_LATENCY_WARMUP)
+        rep = {f"p{q}_ms": rec.percentile_ms(q) for q in (50, 99)}
+        rep["max_ms"] = max(rec.samples_s) * 1e3
+        if period_end:
+            rep["split"] = period_end_split(rec.samples_s, period_end)
+        out[label]["host_callback"] = rep
     ir30 = (rng.standard_normal(STREAM_SECONDS * SR) * 0.01).astype(np.float32)
     calls = STREAM_WARMUP + STREAM_TIMED
     x_st = torch.from_numpy(rng.standard_normal((calls, STREAM_CALL * BLOCK))

@@ -12,6 +12,10 @@ run them without it::
 This file imports nothing of JAX.
 """
 
+import importlib.util
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -154,6 +158,132 @@ def test_serving_wrappers_on_card_match_cpu(dev):
             # widen the gap, held to the JAX package's slice tolerance
             np.testing.assert_allclose(y.numpy(), cpu.process(x[t]).numpy(), atol=2e-5,
                                        err_msg=f"{type(gpu).__name__} block {t}")
+
+
+# ---- B2's big tail off the caller's stream: side stream, CUDA graphs ----------
+
+def _chip_smoke():
+    """``chip_smoke.py`` of this checkout, loaded by path (its race gate)."""
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_for_card_tests", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _two_stage_inputs(seed):
+    """Block 64, a 9000-tap IR: period 16, a big tail of 7 segments at 1024."""
+    rng = np.random.default_rng(seed)
+    return ((rng.standard_normal(9000) * 0.05).astype(np.float32),
+            rng.standard_normal((240, 64)).astype(np.float32))
+
+
+def test_two_stage_race_gate(dev):
+    """``chip_smoke.race_gate`` at a small size, from a mid-period state:
+    the wrapper as it runs and with its side stream held back 5 ms before
+    each period end give outputs and an exit snapshot bit-equal to a twin
+    synchronised after every block; one graph replay a period end, none in
+    line; the holds slowed the held-back run, so they held."""
+    cs = _chip_smoke()
+    ir, x = _two_stage_inputs(170)
+    conv = CudaTwoStageConvolver(ir, 64, len(ir), device=dev)
+    for xb in x[:5]:
+        conv.process(xb)
+    p = conv.cfg.period
+    race = cs.race_gate(conv, x[5:5 + (-conv.row) % p + 6 * p], hold_ms=5.0)
+    for mode in cs.RACE_MODES:
+        r = race[mode]
+        assert r["outputs_bit_equal"] and r["snapshot_bit_equal"], mode
+        assert r["replays"] == r["period_ends"] == 7 and r["inline"] == 0, mode
+    held = race["side stream held back"]
+    assert held["wall_s"] >= (held["period_ends"] - 1) * 5e-3
+
+
+def test_two_stage_snapshot_after_period_end_matches_synchronised_twin(dev):
+    """Card tensors, no synchronisation between blocks: a snapshot on the
+    block right after a period end (the big tail just enqueued on the side
+    stream) is bit-equal to that of a twin synchronised after every block,
+    and so are the outputs."""
+    cs = _chip_smoke()
+    ir, x = _two_stage_inputs(171)
+    xs = torch.from_numpy(x).to(dev)
+    conv = CudaTwoStageConvolver(ir, 64, len(ir), device=dev)
+    twin = CudaTwoStageConvolver(ir, 64, len(ir), device=dev)
+    p = conv.cfg.period
+    ys = [conv.process(xb) for xb in xs[:3 * p]]
+    snap = conv.snapshot()
+    yt = []
+    for xb in xs[:3 * p]:
+        yt.append(twin.process(xb))
+        torch.cuda.synchronize()
+    assert conv.row == 0 and conv.tail_replays == twin.tail_replays == 3
+    assert conv.tail_inline == twin.tail_inline == 0
+    assert torch.equal(torch.stack(ys), torch.stack(yt))
+    assert cs.snapshots_equal(snap, twin.snapshot())
+
+
+def test_two_stage_graphs_captured_again_after_restore_and_reset(dev):
+    """restore and reset take fresh tensors and capture the big-tail graphs
+    again over them; the replays after each are bit-equal to the run they
+    repeat (after restore) and to a fresh wrapper (after reset)."""
+    ir, x = _two_stage_inputs(172)
+    xs = torch.from_numpy(x).to(dev)
+    conv = CudaTwoStageConvolver(ir, 64, len(ir), device=dev)
+    p = conv.cfg.period
+    graphs = [conv._graphs]
+    for xb in xs[:20]:
+        conv.process(xb)
+    snap = conv.snapshot()
+    y1 = torch.stack([conv.process(xb) for xb in xs[20:20 + 3 * p]])
+    conv.restore(snap)
+    graphs.append(conv._graphs)
+    assert torch.equal(y1, torch.stack([conv.process(xb) for xb in xs[20:20 + 3 * p]]))
+    conv.reset()
+    graphs.append(conv._graphs)
+    fresh = CudaTwoStageConvolver(ir, 64, len(ir), device=dev)
+    assert torch.equal(torch.stack([conv.process(xb) for xb in xs[:4 * p]]),
+                       torch.stack([fresh.process(xb) for xb in xs[:4 * p]]))
+    assert all(g is not None for g in graphs) and len({id(g) for g in graphs}) == 3
+    assert conv.tail_inline == 0 and conv.tail_replays == 1 + 3 + 3 + 4
+
+
+def test_serving_restore_refuses_bad_owned_tensors(dev):
+    """A snapshot whose tensors are not what the kernel or the big tail reads
+    (on the CPU, another dtype, another shape) is refused at restore, not at
+    the next block, and the wrapper runs on bit-equal to a clone taken
+    before: B2, B1 and B3."""
+    ir, x = _two_stage_inputs(173)
+    xs = torch.from_numpy(x).to(dev)
+    two = CudaTwoStageConvolver(ir, 64, len(ir), device=dev)
+    uni = CudaFFTConvolver(ir, 64, len(ir), device=dev)
+    xf = CudaCrossfadeConvolver(ir, 64, len(ir), crossfade_samples=128, device=dev)
+    for xb in xs[:5]:
+        for conv in (two, uni, xf):
+            conv.process(xb)
+    fstate, tail, bufs, row = two.snapshot()
+    short = tail.clone()
+    short.segments = short.segments[:-1].clone()
+    wide = tail.clone()
+    wide.overlap = wide.overlap.double()
+    bad_two = [(fstate.clone(), tail, {**bufs, "tail_input": bufs["tail_input"].cpu()}, row),
+               (fstate.clone(), short, bufs, row), (fstate.clone(), wide, bufs, row),
+               (cuda_two_stage.FusedState(fstate.segments.cpu(), fstate.head_overlap,
+                                          fstate.t0_overlap, fstate.current), tail, bufs, row)]
+    st = uni.snapshot()
+    bad_uni = [cuda_engine.FDLState(st.segments.cpu(), st.overlap, st.current),
+               cuda_engine.FDLState(st.segments, st.overlap[:-1].clone(), st.current)]
+    consts, xst, cf, stored, pending = xf.snapshot()
+    bad_xf = [(cuda_crossfade.XfadeConsts(consts.ir_a, consts.ir_b[:-1].clone(), consts.tw),
+               xst, cf, stored, pending),
+              (consts, xst, cf, stored.cpu(), pending)]
+    for conv, bad in ((two, bad_two), (uni, bad_uni), (xf, bad_xf)):
+        twin = conv.clone()
+        for snap in bad:
+            with pytest.raises(ValueError):
+                conv.restore(snap)
+        assert torch.equal(torch.stack([conv.process(xb) for xb in xs[5:40]]),
+                           torch.stack([twin.process(xb) for xb in xs[5:40]])), type(conv)
 
 
 def test_kernel_rejects_bad_operands(dev):

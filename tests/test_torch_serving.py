@@ -147,6 +147,145 @@ def test_two_stage_serving_contracts():
         PallasTwoStageConvolver(np.ones(64, np.float32), 64, 64)
 
 
+def _near(got, want, what):
+    """Within SLICE_ATOL of the larger of 1 and ``want``'s magnitude."""
+    want = np.asarray(want)
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=SLICE_ATOL * max(1.0, float(np.abs(want).max())),
+                               err_msg=what)
+
+
+def _state_matches_pallas(conv, ref, what):
+    """``conv.snapshot()`` (the rotated buffers seen through their names)
+    against the JAX wrapper's state: B2's ring and overlaps, the big tail's
+    engine, the five period buffers and the row."""
+    fstate, tail, bufs, row = conv.snapshot()
+    assert row == ref.row, what
+    _, jf = interop.fused_head(ref.consts, ref.fstate)
+    for f in ("segments", "head_overlap", "t0_overlap"):
+        _near(getattr(fstate, f), getattr(jf, f), f"{what}: {f}")
+    assert fstate.current == jf.current, what
+    jt = interop.uniform_state(ref.tail_state)
+    for f in ("segments", "pre_multiplied", "overlap"):
+        _near(getattr(tail, f), getattr(jt, f), f"{what}: tail {f}")
+    assert (tail.current, tail.input_fill) == (jt.current, jt.input_fill), what
+    for k in cuda_two_stage.BUFFERS:
+        _near(bufs[k], ref.buffers[k], f"{what}: {k}")
+
+
+def _snapshots_equal(a, b):
+    """Two CudaTwoStageConvolver snapshots hold the same bits."""
+    (fa, ta, ba, ra), (fb, tb, bb, rb) = a, b
+    assert ra == rb and fa.current == fb.current and ta.current == tb.current
+    for x, y in ([(getattr(fa, f), getattr(fb, f)) for f in ("segments", "head_overlap",
+                                                              "t0_overlap")]
+                 + [(getattr(ta, f), getattr(tb, f)) for f in ("segments", "pre_multiplied",
+                                                               "overlap")]
+                 + [(ba[k], bb[k]) for k in cuda_two_stage.BUFFERS]):
+        assert torch.equal(x, y)
+
+
+def _small_two_stage(seed):
+    """Block 32, a 2500-tap IR: period 8, big tail of 8 segments at 256."""
+    rng = np.random.default_rng(seed)
+    ir = rng.standard_normal(2500).astype(np.float32) * 0.05
+    return ir, rng.standard_normal((120, 32)).astype(np.float32)
+
+
+def test_two_stage_rotation_matches_pallas_through_period_ends():
+    """CudaTwoStageConvolver on the CPU (the big tail in line, period
+    buffers rotating by a phase index) against PallasTwoStageConvolver in
+    interpret mode over 10 periods, the big tail's ring wrapping: every
+    output, and the whole state right after period ends and mid-period."""
+    ir, x = _small_two_stage(36)
+    ref = PallasTwoStageConvolver(ir, 32, len(ir), interpret=True)
+    conv = CudaTwoStageConvolver(ir, 32, len(ir), device="cpu")
+    p = conv.cfg.period
+    assert (p, conv.cfg.tail_block, conv.cfg.tail.seg_count) == (8, 256, 8)
+    for t in range(10 * p):
+        np.testing.assert_allclose(conv.process(x[t]).numpy(), np.asarray(ref.process(x[t])),
+                                   atol=SLICE_ATOL, err_msg=f"block {t}")
+        if t in (p - 1, 3 * p - 1, 4 * p + 2, 9 * p - 1):  # three period ends, one mid-period
+            _state_matches_pallas(conv, ref, f"after block {t}")
+    assert (conv.tail_inline, conv.tail_replays) == (10, 0)
+    assert conv.side_stream is None
+
+
+@pytest.mark.parametrize("at", [11, 16], ids=["mid-period", "after-period-end"])
+def test_two_stage_copies_at_period_edges_replay_bit_equal(at):
+    """snapshot / restore / clone taken mid-period and on the block right
+    after a period end (row 0: the big tail has just run), then three
+    periods replayed: bit-equal to the run they were taken from."""
+    ir, x = _small_two_stage(37)
+    conv = CudaTwoStageConvolver(ir, 32, len(ir), device="cpu")
+    p = conv.cfg.period
+    for t in range(at):
+        conv.process(x[t])
+    assert conv.row == at % p
+    snap = conv.snapshot()
+    twin = conv.clone()
+    assert twin.tail_inline == 0
+    ys = torch.stack([conv.process(xb) for xb in x[at:at + 3 * p]])
+    conv.restore(snap)
+    assert conv.row == at % p
+    _snapshots_equal(conv.snapshot(), snap)  # restore, then snapshot: the same state
+    assert torch.equal(ys, torch.stack([conv.process(xb) for xb in x[at:at + 3 * p]]))
+    assert torch.equal(ys, torch.stack([twin.process(xb) for xb in x[at:at + 3 * p]]))
+    # the snapshot is a value copy: the runs after it left it as it was
+    conv.restore(snap)
+    assert torch.equal(ys[:p], torch.stack([conv.process(xb) for xb in x[at:at + p]]))
+
+
+def test_two_stage_reset_after_period_end_matches_fresh():
+    """reset on the block right after a period end (the big tail's output
+    just written, its ring advanced): the next three periods are bit-equal
+    to a fresh wrapper's, and the state to a fresh snapshot."""
+    ir, x = _small_two_stage(38)
+    conv = CudaTwoStageConvolver(ir, 32, len(ir), device="cpu")
+    p = conv.cfg.period
+    for t in range(2 * p):
+        conv.process(x[t])
+    assert conv.row == 0 and conv.tail_state.current != 0
+    conv.reset()
+    fresh = CudaTwoStageConvolver(ir, 32, len(ir), device="cpu")
+    for got, want in zip(conv.snapshot()[2].values(), fresh.snapshot()[2].values()):
+        assert torch.equal(got, want)
+    assert conv.tail_state.current == fresh.tail_state.current == 0
+    assert torch.equal(torch.stack([conv.process(xb) for xb in x[:3 * p]]),
+                       torch.stack([fresh.process(xb) for xb in x[:3 * p]]))
+
+
+def test_serving_restore_refuses_bad_state():
+    """A snapshot whose tensors are not what the kernel (or the big tail)
+    reads is refused at restore, and the wrapper keeps its state: it runs
+    on bit-equal to a clone taken before."""
+    ir, x = _small_two_stage(39)
+    two = CudaTwoStageConvolver(ir, 32, len(ir), device="cpu")
+    uni = CudaFFTConvolver(ir, 32, len(ir), device="cpu")
+    for t in range(5):
+        two.process(x[t])
+        uni.process(x[t])
+    fstate, tail, bufs, row = two.snapshot()
+    short = tail.clone()
+    short.segments = short.segments[:-1].clone()
+    bad_two = [(fstate.clone(), tail, {**bufs, "precalc": bufs["precalc"].double()}, row),
+               (fstate.clone(), short, bufs, row),
+               (fstate.clone(), tail, bufs, two.cfg.period),
+               (cuda_two_stage.FusedState(fstate.segments[:, :-1].clone(), fstate.head_overlap,
+                                          fstate.t0_overlap, fstate.current), tail, bufs, row)]
+    st = uni.snapshot()
+    bad_uni = [cuda_engine.FDLState(st.segments.to(torch.complex128), st.overlap, st.current),
+               cuda_engine.FDLState(st.segments, st.overlap, st.segments.shape[0])]
+    for conv, bad in ((two, bad_two), (uni, bad_uni)):
+        twin = conv.clone()
+        for snap in bad:
+            with pytest.raises(ValueError):
+                conv.restore(snap)
+        assert torch.equal(torch.stack([conv.process(xb) for xb in x[5:30]]),
+                           torch.stack([twin.process(xb) for xb in x[5:30]]))
+
+
 def test_uniform_serving_matches_pallas():
     """CudaFFTConvolver on the CPU against PallasFFTConvolver in interpret
     mode: process, update (full ring, overlap dropped), reset, snapshot,

@@ -128,7 +128,17 @@ def test_uniform_batched_stream_matches_scan():
     y, calls = _conv_calls(lambda: tuni.process_stream(cfg, st, _x(x)))
     assert calls == 1
     y_seq = _uni_blocks(cfg, st_seq, _x(x))
-    _close(y, y_fast, OUT_TOL, "vs JAX")
+    # From a zero state the output is the direct convolution.  At this
+    # output's scale (~23) two float32 implementations need not agree to
+    # OUT_TOL: JAX's own output misses float64 by ~1.1e-5 here.  So the port
+    # is held to float64 at OUT_TOL, and to JAX at OUT_TOL plus JAX's own
+    # error against float64 (what the triangle inequality allows two
+    # implementations that each meet their bound).
+    ref64 = np.convolve(x.reshape(-1).astype(np.float64),
+                        ir.astype(np.float64))[:x.size].reshape(x.shape)
+    jax_err64 = float(np.abs(np.asarray(y_fast, np.float64) - ref64).max())
+    _close(y, ref64, OUT_TOL, "vs float64")
+    _close(y, y_fast, OUT_TOL + jax_err64, "vs JAX")
     _close(y, y_seq, OUT_TOL, "vs the block loop")
     _uni_state_close(st, interop.uniform_state(js_fast), msg="vs JAX")
     _uni_state_close(st, st_seq, msg="vs the block loop")
