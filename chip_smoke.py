@@ -45,27 +45,46 @@ printed with the card's name and power limit and gated <= 1 (a share above
 9. latency of B3 and B1p per block and of B4 and B4p per 64-block call
    (and per block: a call over 64), kernel path against plain path
    (recorded, not gated);
-10. ``ReverbFarm`` (kernel B5, f32 tail) at the JAX farm's benchmark shape:
+10. ``ReverbFarm`` (kernels B5 and B6, f32 tail) at the JAX farm's benchmark shape:
     128 voices of random 60 s 48 kHz IRs (scale 0.002, seeded on the card),
     block 128 — tail block 32768, period 256, head and tail0 256 segments,
     big tail 88 segments (checked).  Calls of 8 periods until the tail phase
-    has wrapped (11), then of 2, 1, 4 and 3 periods: one B5 launch per call,
-    kernel path against the plain path over all voices (1e-4), and two
-    voices against ``scipy.signal.fftconvolve`` in float64 over the whole
-    stream (1e-4);
+    has wrapped (11), then of 2, 1, 4 and 3 periods: one B5 and one B6
+    launch per call, kernel path against the plain path (both kernels'
+    plain versions) over all voices (1e-4), the head path's exit state
+    against the plain path's (1e-4 a field), and two voices against
+    ``scipy.signal.fftconvolve`` in float64 over the whole stream (1e-4);
 11. at a period boundary ``update`` (new IRs for every voice), then
-    ``update_voices`` on 3 voices, then 2 calls: kernel against plain path
-    (1e-4), and the untouched voices bit-identical to a clone that skipped
+    ``update_voices`` on 3 voices, then 2 calls (B6's suppress pass on the
+    first): kernel against plain path (1e-4, output and the head path's exit
+    state), and the untouched voices bit-identical to a clone that skipped
     ``update_voices``;
-12. the same farm with ``tail_dtype=torch.bfloat16`` (B5's bf16 form) over
-    the stream of phase 10: against its plain path (1e-4) and against the
-    f32 farm (5e-3 of the output scale);
+12. the same farm with ``tail_dtype=torch.bfloat16`` (B5's bf16 form, B6)
+    over the stream of phase 10: against its plain path (1e-4) and against
+    the f32 farm (5e-3 of the output scale);
 13. latency of 2- and 8-period farm calls, both storages, kernel path
     against plain path, with real-time voices (voices x audio seconds /
     wall seconds), and the time of the B5 step alone against its plain
     version (recorded, not gated); the step's share of its bound
     (``roofline.farm_tail_step_cost``) and each call's (``farm_cost``, the
-    kernel path's best event median), gated;
+    kernel path's best event median), gated.  Then the head path
+    (:func:`farm_head_path`): B6 against ``heads_step_plain`` on one
+    8-period call from a farm's state with the big tail's delay line, with
+    no voice and with three voices suppressed: the output and every exit
+    field (1e-4) and a replay from the same state bit-equal; the head path
+    alone in turns (the plain version over cached meta-spectra, the
+    parent's form, then B6), event ms and a ``torch.profiler`` window each
+    (B6 gated to its three kernels once a call) and their shares of
+    ``roofline.farm_heads_cost`` (gated); the 8-period farm call in the
+    kernel form and in the parent's form (``farm2_stream`` with the plain
+    head path over cached meta-spectra and B5), f32 and bf16 tails: events
+    in turns, device microseconds split into B6, B5 and the rest, and the
+    peak memory of one call (the state held plus
+    ``torch.cuda.max_memory_allocated`` over the call) beside
+    ``farm2_bytes_per_voice`` x 128, gated within 2 % for the kernel form;
+    then one call of the most blocks a call takes (4096: the length
+    ``farm2_init``'s guard prices), its peak gated within 2 % of the model
+    at that length.  A ``{"farm_head_path": ...}`` line records it;
 14. a ``torch.profiler`` window over 256 warm steps of each per-block kernel
     (B1, B1p, B2, B3) and 24 warm 64-block calls of B4 and B4p, each kernel
     wrapper called directly on its wrapper's operands: device microseconds
@@ -161,8 +180,8 @@ printed with the card's name and power limit and gated <= 1 (a share above
     float64 (1e-4).  ``dp``: ``ReverbFarm(mesh=...)`` over phase 10's 128
     IRs, 64 voices a rank, f32 and bf16 tails, 2 calls of 8 periods, each
     rank's slab against the unsharded farm's rows computed here (1e-5; bf16
-    5e-3 of the scale; bit-equality printed), B5 (B5p) launched exactly once
-    a call on each rank and the sp paths launching nothing; each rank's
+    5e-3 of the scale) and gated bit-equal, B5 (B5p) and B6 launched exactly
+    once a call on each rank and the sp paths launching nothing; each rank's
     call latency.  A ``{"mesh": ...}`` line records it.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
@@ -174,7 +193,8 @@ module's) and its ``share`` of the device time (B5: of the step alone;
 ``call_bound_us`` and ``call_share``: the 8-period call's),
 ``library_ms`` (null: no single PyTorch call computes a step), B5's and
 B5p's ``dp_mesh`` (phase 17: ranks, launches a rank, error, call ms a
-rank), and for B1-B4
+rank), B6's head path alone (phase 13: ``ms`` B6, ``plain_ms`` the plain
+version over cached meta-spectra, its profile and share), and for B1-B4
 the profile's ``device_us``, ``device_us_by_kernel`` and
 ``cuda_launches_per_step`` (1 for B1, B1p, B2 and B3, 3 for B4 and B4p,
 gated).
@@ -214,6 +234,10 @@ FARM_PERIODS = [8] * 11 + [2, 1, 4, 3]  # 11 x 8 = 88: the tail phase wraps
 FARM_SHAPES = (32768, 256, 256, 256, 88)  # tail block, period, head, tail0, tail
 FARM_UPDATED = [3, 64, 127]
 FARM_TIMED = {2: (2, 6), 8: (2, 4)}       # periods per call: (warm-up, timed) calls
+HEAD_PERIODS = 8                          # B6 alone and the profiled farm calls (phase 13)
+HEAD_WARMUP, HEAD_TIMED, HEAD_PROFILED = 2, 6, 4  # calls
+MODEL_TOL = 0.02                          # farm2_bytes_per_voice against the measured peak
+GUARD_SEED = 15                           # the input of the guard-shape farm call (phase 13)
 PROFILE_STEPS, PROFILE_WARMUP = 256, 64   # per-block kernels (phase 14)
 PROFILE_CALLS, PROFILE_CALL_WARMUP = 24, 4  # B4 calls
 # phase 15: the JAX benchmarks' stream shapes (bench.py:163-178,
@@ -314,14 +338,15 @@ class Counts:
 
 
 def kernel_counts() -> Counts:
-    """Every kernel wrapper of the port, B1 to B5p."""
-    from fft_convolution_tpu_torch.ops import (cuda_crossfade, cuda_engine, cuda_farm_mac,
-                                               cuda_stream, cuda_two_stage)
+    """Every kernel wrapper of the port, B1 to B6."""
+    from fft_convolution_tpu_torch.ops import (cuda_crossfade, cuda_engine, cuda_farm_heads,
+                                               cuda_farm_mac, cuda_stream, cuda_two_stage)
 
     return Counts(B1=cuda_engine.block_step, B1p=cuda_engine.block_step_packed,
                   B2=cuda_two_stage.block_step, B3=cuda_crossfade.block_step,
                   B4=cuda_stream.stream, B4p=cuda_stream.stream_packed,
-                  B5=cuda_farm_mac.phased_step, B5p=cuda_farm_mac.phased_step_packed)
+                  B5=cuda_farm_mac.phased_step, B5p=cuda_farm_mac.phased_step_packed,
+                  B6=cuda_farm_heads.heads_step)
 
 
 def core_calls(since: tuple | None = None) -> tuple:
@@ -1146,11 +1171,235 @@ def host_runtime(dev, counts: Counts, ir: np.ndarray, ir_b: np.ndarray, x_host: 
                         lambda: reverb_farm.main(["--device", "cuda", "--voices",
                                                   str(EXAMPLE_VOICES), "--ir-seconds",
                                                   str(EXAMPLE_IR_SECONDS)]),
-                        {"B5": 2})
+                        {"B5": 2, "B6": 2})
     record["examples"] = {"serve_morph": {key: morph[key] for key in ("pre_err", "post_err",
                                                                       "update_applied_at")},
                           "reverb_farm": {"err": farm["err"], "wall_s": farm["wall_s"]}}
     return record
+
+
+def plain_farm(farm):
+    """A clone of ``farm`` whose big tail and head path run the plain
+    versions of kernels B5 and B6 on the card."""
+    from fft_convolution_tpu_torch.ops import cuda_farm_heads, cuda_farm_mac
+
+    twin = farm.clone()
+    twin._step = cuda_farm_mac.phased_step_plain
+    twin._heads = cuda_farm_heads.heads_step_plain
+    return twin
+
+
+def head_fields(state) -> dict:
+    """The head path's exit state of a farm state, complex fields as
+    (re, im) pairs."""
+    pairs = {"ring": state.head.segments, "hist": state.hist, "overlap": state.head.overlap,
+             "pre head": state.head.pre_multiplied, "pre tail0": state.tail0.pre_multiplied}
+    return {k: torch.view_as_real(v) if v.is_complex() else v for k, v in pairs.items()}
+
+
+def head_state_err(label: str, state, want) -> float:
+    """Gate the head path's exit state against ``want`` (1e-4 a field; the
+    ring heads equal).  Returns the largest error."""
+    if not state.head.current == state.tail0.current == want.head.current:
+        fail(f"{label}: ring head {state.head.current} / {state.tail0.current}, want "
+             f"{want.head.current}")
+    got, ref = head_fields(state), head_fields(want)
+    errs = {k: max_abs(got[k], ref[k]) for k in got}
+    print(f"{label}: max abs err by field {errs}", flush=True)
+    for k, err in errs.items():
+        gate(f"{label}: {k}", err, PARITY_TOL)
+    return max(errs.values())
+
+
+def state_nbytes(obj) -> int:
+    """Bytes of every tensor in a (nested) state dataclass."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if dataclasses.is_dataclass(obj):
+        return sum(state_nbytes(getattr(obj, f.name)) for f in dataclasses.fields(obj))
+    return 0
+
+
+def peak_bytes(run) -> int:
+    """The card memory a call allocates above what was allocated before it,
+    at its peak (``torch.cuda.max_memory_allocated``)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    run()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def by_kind(by_name: dict) -> dict:
+    """A profile's device microseconds split into kernel B6's three kernels,
+    kernel B5's and everything else (cuFFT, torch's elementwise and copy
+    kernels)."""
+    out = {"B6": 0.0, "B5": 0.0, "other": 0.0}
+    for name, us in by_name.items():
+        out["B6" if "b6_" in name else "B5" if "b5_" in name else "other"] += us
+    return out
+
+
+def farm_head_path(dev, farm_irs: torch.Tensor, gen: torch.Generator, crd: Card) -> dict:
+    """Phase 13's head path (module docstring): kernel B6 against its plain
+    version at the farm's shape, alone and inside the farm call, against the
+    parent's form (the plain head path over cached meta-spectra, B5 for the
+    tail).  Returns a record."""
+    from fft_convolution_tpu_torch import ReverbFarm
+    from fft_convolution_tpu_torch.ops import cuda_farm_heads
+    from fft_convolution_tpu_torch.parallel import farm2
+
+    rl = roofline()
+    kernel, plain = cuda_farm_heads.heads_step, cuda_farm_heads.heads_step_plain
+    rec = {}
+    f = ReverbFarm(farm_irs, BLOCK, farm_irs.shape[1], device=dev)
+    cfg = f.cfg
+    t = HEAD_PERIODS * cfg.period
+    n_calls = HEAD_WARMUP + HEAD_TIMED
+    xs = torch.randn((n_calls, t, FARM_VOICES, BLOCK), generator=gen, device=dev)
+    f.process(xs[0])  # a history in the ring and hist
+    st = f.state
+    rows = torch.randn((HEAD_PERIODS, FARM_VOICES, cfg.tail_block), generator=gen,
+                       device=dev) * FARM_SCALE
+    delay = (st.tail_precalc, st.tail_output, rows)
+    # the parent's form: the plain version over cached meta-spectra
+    parent = functools.partial(plain, khat=farm2.farm2_head_khat(cfg, st, t))
+
+    def call(state, x, step):
+        return step(state.head, state.tail0, x, state.hist, state.suppress, delay)
+
+    # gates: against the plain version, output and exit state; a replay bit-equal
+    err = 0.0
+    for flagged in ([], FARM_UPDATED):
+        base = st.clone()
+        base.suppress.fill_(False)
+        if flagged:
+            base.suppress[flagged] = True
+        k, p_, again = base.clone(), base.clone(), base.clone()
+        y, yp, y2 = call(k, xs[1], kernel), call(p_, xs[1], plain), call(again, xs[1], kernel)
+        torch.cuda.synchronize()
+        label = f"B6 vs plain, {HEAD_PERIODS}-period call, {len(flagged)} voices suppressed"
+        e = max_abs(y, yp)
+        gate(f"{label}: output", e, PARITY_TOL)
+        err = max(err, e, head_state_err(label, k, p_))
+        same = torch.equal(y, y2) and all(
+            torch.equal(a, b) for a, b in zip(head_fields(k).values(),
+                                              head_fields(again).values()))
+        if not same:
+            fail(f"{label}: a replay from the same state is not bit-equal")
+        print(f"{label}: replay bit-equal", flush=True)
+    rec["max_abs_err"] = err
+    # the head path alone: events in turns (plain over cached meta-spectra, the
+    # parent's form; kernel; kernel; plain) and a profile of each
+    cost = rl.farm_heads_cost(cfg, FARM_VOICES, t)
+    ev = {"kernel": [], "plain": []}
+    for kind in ("plain", "kernel", "kernel", "plain"):
+        s = st.clone()
+        step = kernel if kind == "kernel" else parent
+        for i in range(HEAD_WARMUP):
+            call(s, xs[i], step)
+        torch.cuda.synchronize()
+        ms = event_ms([lambda i=i: call(s, xs[i], step)
+                       for i in range(HEAD_WARMUP, n_calls)])
+        ev[kind].append(statistics.median(ms))
+    prof = {}
+    for kind in ("kernel", "plain"):
+        s = st.clone()
+        step = kernel if kind == "kernel" else parent
+        prof[kind] = profile_steps(lambda i: call(s, xs[i % n_calls], step), HEAD_PROFILED,
+                                   HEAD_WARMUP)
+        form = "B6" if kind == "kernel" else "plain over cached meta-spectra: the parent form"
+        print(f"head path alone, {kind} ({form}): event medians {ev[kind]!r} ms, "
+              f"{prof[kind]['device_us']!r} device us and "
+              f"{prof[kind]['cuda_launches_per_step']!r} CUDA kernels a call (by kernel: "
+              f"{prof[kind]['by_name']!r})", flush=True)
+    kp = prof["kernel"]
+    if sorted(kp["names"]) != sorted(n for n in kp["names"] if "b6_" in n) \
+            or len(kp["names"]) != 3 or round(kp["cuda_launches_per_step"]) != 3:
+        fail(f"B6: {kp['cuda_launches_per_step']!r} CUDA kernels a call ({kp['names']}), not "
+             "three launches of its three kernels")
+    bound = shares("B6 head path alone", cost, crd, device=kp["device_us"] / 1e6,
+                   event=min(ev["kernel"]) / 1e3)
+    shares("plain head path alone (the parent form)", cost, crd,
+           device=prof["plain"]["device_us"] / 1e6, event=min(ev["plain"]) / 1e3)
+    rec.update(ms=min(ev["kernel"]), plain_ms=min(ev["plain"]), event_ms=ev,
+               device_us=kp["device_us"], device_us_by_kernel=kp["by_name"],
+               cuda_launches_per_call=kp["cuda_launches_per_step"],
+               plain_device_us=prof["plain"]["device_us"], bound=bound)
+    del f, st, parent, delay, rows
+    torch.cuda.empty_cache()
+
+    # the farm call in both forms, f32 and bf16: events in turns, a profile
+    # split by kernel, and the peak memory of one call beside the model
+    for dtype, tag in ((torch.float32, "B5"), (torch.bfloat16, "B5p")):
+        item = 8 if dtype == torch.float32 else 4
+        fc = ReverbFarm(farm_irs, BLOCK, farm_irs.shape[1], device=dev, tail_dtype=dtype)
+        fc.process(xs[0])
+        kh = farm2.farm2_head_khat(fc.cfg, fc.state, t)
+        parent = functools.partial(plain, khat=kh)
+        forms = {"kernel": lambda x: fc.process(x),
+                 "parent": lambda x: farm2.farm2_stream(fc.cfg, fc.state, x, fc._step,
+                                                        heads=parent)}
+        fev = {"kernel": [], "parent": []}
+        for kind in ("parent", "kernel", "kernel", "parent"):
+            for i in range(HEAD_WARMUP):
+                forms[kind](xs[i])
+            torch.cuda.synchronize()
+            fev[kind].append(statistics.median(event_ms(
+                [lambda i=i: forms[kind](xs[i]) for i in range(HEAD_WARMUP, n_calls)])))
+        model = farm2.farm2_bytes_per_voice(BLOCK, farm_irs.shape[1], t, item) * FARM_VOICES
+        state_b = state_nbytes(fc.state)
+        out = {"event_ms": fev, "model_bytes": model, "state_bytes": state_b,
+               "khat_bytes": state_nbytes(kh)}
+        for kind in ("kernel", "parent"):
+            pr = profile_steps(lambda i: forms[kind](xs[i % n_calls]), HEAD_PROFILED,
+                               HEAD_WARMUP)
+            split = by_kind(pr["by_name"])
+            held = state_b + (out["khat_bytes"] if kind == "parent" else 0)
+            peak = held + peak_bytes(lambda: forms[kind](xs[1]))
+            out[kind] = {"device_us": pr["device_us"], "by_kind": split,
+                         "cuda_kernels": pr["cuda_launches_per_step"],
+                         "by_name": pr["by_name"], "peak_bytes": peak}
+            if kind == "kernel" and not abs(peak / model - 1) <= MODEL_TOL:
+                fail(f"farm {tag}: measured peak {peak} bytes, farm2_bytes_per_voice x "
+                     f"{FARM_VOICES} = {model}: off by more than {MODEL_TOL:.0%}")
+            print(f"farm {tag} {HEAD_PERIODS}-period call, {kind} form: event medians "
+                  f"{fev[kind]!r} ms; {pr['device_us']!r} device us in "
+                  f"{pr['cuda_launches_per_step']!r} CUDA kernels ({split!r}); peak "
+                  f"{peak / 1e9!r} GB = {peak / FARM_VOICES / 1e6!r} MB a voice (state "
+                  f"{held / 1e9!r} GB and the call's transients; the model "
+                  f"farm2_bytes_per_voice x {FARM_VOICES}: {model / 1e9!r} GB, "
+                  f"measured / model {peak / model!r}) ({crd.smi})", flush=True)
+        out["call_bound"] = shares(f"farm {tag} {HEAD_PERIODS}-period call (kernel form, "
+                                   "this phase)", rl.farm_cost(fc.cfg, FARM_VOICES, t, item),
+                                   crd, device=out["kernel"]["device_us"] / 1e6,
+                                   event=min(fev["kernel"]) / 1e3)
+        # the guard's own shape: one call of the most blocks a call takes, the
+        # length farm2_init's guard prices (its own generator: later phases'
+        # draws stay as they were)
+        tg = fc.max_blocks_per_call
+        xg = torch.randn((tg, FARM_VOICES, BLOCK), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(GUARD_SEED))
+        fc.process(xg)  # cuFFT's plans at this length
+        peak_g = state_b + peak_bytes(lambda: fc.process(xg))
+        per_voice = farm2.farm2_bytes_per_voice(BLOCK, farm_irs.shape[1], tg, item)
+        model_g = per_voice * FARM_VOICES
+        total = torch.cuda.get_device_properties(dev).total_memory
+        out["guard_call"] = {"t_blocks": tg, "peak_bytes": peak_g, "model_bytes": model_g}
+        print(f"farm {tag} {tg}-block call (the guard's shape): peak {peak_g / 1e9!r} GB = "
+              f"{peak_g / FARM_VOICES / 1e6!r} MB a voice; the model {model_g / 1e9!r} GB, "
+              f"measured / model {peak_g / model_g!r}; the card's {total / 1e9!r} GB over the "
+              f"model's {per_voice / 1e6!r} MB a voice: {total // per_voice} voices "
+              f"({crd.smi})", flush=True)
+        if not abs(peak_g / model_g - 1) <= MODEL_TOL:
+            fail(f"farm {tag}, {tg}-block call: measured peak {peak_g} bytes, "
+                 f"farm2_bytes_per_voice x {FARM_VOICES} = {model_g}: off by more than "
+                 f"{MODEL_TOL:.0%}")
+        rec[tag] = out
+        del fc, kh, forms, xg
+        torch.cuda.empty_cache()
+    return rec
 
 
 def farm_irs_on(dev) -> tuple[torch.Generator, torch.Tensor]:
@@ -1317,9 +1566,10 @@ def mesh_phase(dev, ir: np.ndarray, ir_b: np.ndarray, x_host: np.ndarray,
             lo, hi = r["voices"]
             print(f"rank {rank} {tag} farm, voices {lo}-{hi - 1} launches: {r['launches']}",
                   flush=True)
-            if r["launches"] != {k: (DP_CALLS if k == tag else 0) for k in r["launches"]}:
+            if r["launches"] != {k: (DP_CALLS if k in (tag, "B6") else 0)
+                                 for k in r["launches"]}:
                 fail(f"rank {rank}: {tag} farm launch counts {r['launches']}, not one "
-                     f"{tag} a call")
+                     f"{tag} and one B6 a call")
             y, want = r["y"].to(dev), dp_ref[tag][:, :, lo:hi]
             err = max_abs(y, want)
             bit_equal = bool(torch.equal(y, want))
@@ -1330,6 +1580,9 @@ def mesh_phase(dev, ir: np.ndarray, ir_b: np.ndarray, x_host: np.ndarray,
             print(f"rank {rank} {tag} farm slab bit-equal to the unsharded farm: {bit_equal}; "
                   f"{DP_PERIODS}-period call latency (event ms, {DP_TIMED} calls, the other "
                   f"rank sharing the card) {r['call_ms']!r}", flush=True)
+            if not bit_equal:  # B5 and B6 sum in a fixed order, voice by voice
+                fail(f"rank {rank}: the {tag} farm slab is not bit-equal to the unsharded "
+                     "farm's voices")
             dp_err[tag] = max(dp_err[tag], err)
         if not all(torch.isfinite(t).all() for t in (y1, y2, y_ts)):
             fail(f"rank {rank}: non-finite output")
@@ -1600,19 +1853,20 @@ def main() -> None:
     farm_x = torch.randn((sum(FARM_PERIODS) * p, FARM_VOICES, BLOCK), generator=gen,
                          device=dev)
     calls = list(farm_x.split([k * p for k in FARM_PERIODS]))
-    farm_plain = farm.clone()
-    farm_plain._step = cuda_farm_mac.phased_step_plain
+    farm_plain = plain_farm(farm)
 
     def run_calls(f, xs_):
         return torch.cat([f.process(xc) for xc in xs_])
 
-    y_farm = counts.drive("B5 f32 path", lambda: run_calls(farm, calls),
-                          {"B5": len(calls)})
+    y_farm = counts.drive("B5/B6 f32 path", lambda: run_calls(farm, calls),
+                          {"B5": len(calls), "B6": len(calls)})
     if farm.state.tail.q != sum(FARM_PERIODS) % cfg.tail.seg_count:
         fail(f"tail phase {farm.state.tail.q} after {sum(FARM_PERIODS)} periods")
     b5_err = max_abs(y_farm, run_calls(farm_plain, calls))
-    gate(f"B5 f32 kernel vs plain (ReverbFarm, {len(calls)} calls, all voices)", b5_err,
+    gate(f"B5/B6 f32 kernels vs plain (ReverbFarm, {len(calls)} calls, all voices)", b5_err,
          PARITY_TOL)
+    b6_err = max(b5_err, head_state_err("B6 exit state vs plain after phase 10's calls",
+                                        farm.state, farm_plain.state))
     print(f"farm output scale {float(y_farm.abs().max())!r}", flush=True)
     for voice in (0, FARM_VOICES - 1):
         xv = farm_x[:, voice].reshape(-1).double().cpu().numpy()
@@ -1634,15 +1888,20 @@ def main() -> None:
     skipped = farm.clone()
     for f in (farm, farm_plain):
         f.update_voices(FARM_UPDATED, new3)
-    y11 = counts.drive("B5 f32 path after updates", lambda: run_calls(farm, x11),
-                       {"B5": len(x11)})
+    y11 = counts.drive("B5/B6 f32 path after updates", lambda: run_calls(farm, x11),
+                       {"B5": len(x11), "B6": len(x11)})
     b5_upd_err = max_abs(y11, run_calls(farm_plain, x11))
-    gate("B5 f32 kernel vs plain after update + update_voices", b5_upd_err, PARITY_TOL)
+    gate("B5/B6 f32 kernels vs plain after update + update_voices (B6's suppress pass)",
+         b5_upd_err, PARITY_TOL)
+    b6_err = max(b6_err, b5_upd_err,
+                 head_state_err("B6 exit state vs plain after the updates and two calls",
+                                farm.state, farm_plain.state))
     keep = [i for i in range(FARM_VOICES) if i not in FARM_UPDATED]
     if not torch.equal(y11[:, keep], run_calls(skipped, x11)[:, keep]):
         fail("untouched voices differ from the clone that skipped update_voices")
     print(f"update_voices: {len(keep)} untouched voices bit-identical", flush=True)
     launches["B5"] = len(calls) + len(x11)
+    launches["B6"] = len(calls) + len(x11)
     b5_err = max(b5_err, b5_upd_err)
     del farm, farm_plain, skipped, new_irs, new3, x11, y11
     torch.cuda.empty_cache()
@@ -1651,11 +1910,11 @@ def main() -> None:
     # ---- 12. B5 bf16: the same farm, bf16 ring and table -----------------------
     farm_bf = ReverbFarm(farm_irs, BLOCK, farm_irs.shape[1], device=dev,
                          tail_dtype=torch.bfloat16)
-    farm_bf_plain = farm_bf.clone()
-    farm_bf_plain._step = cuda_farm_mac.phased_step_plain
-    y_bf5 = counts.drive("B5 bf16 path", lambda: run_calls(farm_bf, calls),
-                         {"B5p": len(calls)})
+    farm_bf_plain = plain_farm(farm_bf)
+    y_bf5 = counts.drive("B5p/B6 bf16 path", lambda: run_calls(farm_bf, calls),
+                         {"B5p": len(calls), "B6": len(calls)})
     launches["B5p"] = len(calls)
+    launches["B6"] += len(calls)
     b5p_err = max_abs(y_bf5, run_calls(farm_bf_plain, calls))
     gate("B5 bf16 kernel vs plain (ReverbFarm, all voices)", b5p_err, PARITY_TOL)
     gate("B5 bf16 farm vs f32 farm, relative to the output scale", rel(y_bf5, y_farm),
@@ -1673,8 +1932,7 @@ def main() -> None:
     for dtype, tag in ((torch.float32, "B5"), (torch.bfloat16, "B5p")):
         item = rl.C64 if dtype == torch.float32 else rl.BF16_PAIR
         f = ReverbFarm(farm_irs, BLOCK, farm_irs.shape[1], device=dev, tail_dtype=dtype)
-        f_plain = f.clone()
-        f_plain._step = cuda_farm_mac.phased_step_plain
+        f_plain = plain_farm(f)
         for periods, (warm, timed) in FARM_TIMED.items():
             xt = torch.randn((warm + timed, periods * p, FARM_VOICES, BLOCK), generator=gen,
                              device=dev)
@@ -1715,7 +1973,10 @@ def main() -> None:
                                              step=ms / 1e3))
         del f, f_plain, tail, specs
         torch.cuda.empty_cache()
-    phase_done("13 B5 latency")
+    heads = farm_head_path(dev, farm_irs, gen, crd)
+    b6_err = max(b6_err, heads["max_abs_err"])
+    print(json.dumps({"farm_head_path": heads}), flush=True)
+    phase_done("13 B5/B6 latency, the head path")
 
     # ---- 14. device time and CUDA launches per step, from the profiler ------------
     p_two = two.cfg.period
@@ -1784,7 +2045,7 @@ def main() -> None:
         timed = timed or label
         out = {"name": name, "route": "cuda",
                "source": f"fft_convolution_tpu_torch/csrc/{source}",
-               "replaces": f"fft_convolution_tpu/ops/{replaces}",
+               "replaces": f"fft_convolution_tpu/{replaces}",
                "launches": launches[label], "max_abs_err": err,
                "ms": best(timed, "kernel"), "plain_ms": best(timed, "plain")}
         if label in profiled:
@@ -1803,29 +2064,43 @@ def main() -> None:
         return out
 
     kernels = [
-        row("B1", "B1 uniform block step", "b1_uniform_step.cu", "pallas_engine.py:171",
+        row("B1", "B1 uniform block step", "b1_uniform_step.cu", "ops/pallas_engine.py:171",
             b1_err),
         row("B2", "B2 fused head+tail0 block step", "b2_two_stage_step.cu",
-            "pallas_two_stage.py:92", b2_err),
+            "ops/pallas_two_stage.py:92", b2_err),
         row("B3", "B3 crossfade A/B block step with the mix", "b3_crossfade_step.cu",
-            "pallas_crossfade.py:135", b3_err),
+            "ops/pallas_crossfade.py:135", b3_err),
         row("B4", "B4-f32 long-IR stream, f32 table (ms per 64-block call)",
-            "b4_stream.cu", "pallas_stream.py:96", b4_err),
+            "b4_stream.cu", "ops/pallas_stream.py:96", b4_err),
         row("B4p", "B4-bf16 long-IR stream, bf16 table (ms per 64-block call)",
-            "b4_stream.cu", "pallas_stream.py:96", b4p_err),
+            "b4_stream.cu", "ops/pallas_stream.py:96", b4p_err),
         row("B1p", "B1p uniform block step, bf16 ring and table", "b1_uniform_step.cu",
-            "pallas_engine.py:240", b1p_err),
+            "ops/pallas_engine.py:240", b1p_err),
     ]
     for label, name, replaces, err in (
-            ("B5", "B5-f32 farm big-tail phased step", "pallas_farm_mac.py:186", b5_err),
+            ("B5", "B5-f32 farm big-tail phased step", "ops/pallas_farm_mac.py:186", b5_err),
             ("B5p", "B5-bf16 farm big-tail phased step, bf16 ring and table",
-             "pallas_farm_mac.py:299", b5p_err)):
+             "ops/pallas_farm_mac.py:299", b5p_err)):
         kernels.append(row(label, name + f" ({FARM_VOICES} voices x {FARM_SECONDS} s; ms "
                            "per 8-period ReverbFarm.process call; step_ms and the bound "
                            "for the step alone at T=8); also under the dp mesh, per rank "
                            "(dp_mesh: phase 17)", "b5_farm_tail.cu",
                            replaces, err, timed=f"{label} 8-period"))
         kernels[-1]["dp_mesh"] = {"ranks": MESH_RANKS, **mesh[label]}
+    bd = heads["bound"]
+    kernels.append({
+        "name": f"B6 farm head+tail0 path ({FARM_VOICES} voices x {FARM_SECONDS} s; ms per "
+                f"{HEAD_PERIODS}-period call of the head path alone; plain_ms: the plain "
+                "version over cached meta-spectra, the parent's form)",
+        "route": "cuda", "source": "fft_convolution_tpu_torch/csrc/b6_farm_heads.cu",
+        "replaces": "fft_convolution_tpu/parallel/farm2.py:931",
+        "launches": launches["B6"], "max_abs_err": b6_err, "ms": heads["ms"],
+        "plain_ms": heads["plain_ms"], "device_us": heads["device_us"],
+        "device_us_by_kernel": heads["device_us_by_kernel"],
+        "cuda_launches_per_step": heads["cuda_launches_per_call"],
+        "share": bd["share_device"],
+        **{k: bd[k] for k in ("bound_ms", "bound_us", "bound_by", "l2_resident")},
+        "library_ms": None})
     print(f"total: {time.perf_counter() - t_run:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

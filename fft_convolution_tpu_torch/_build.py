@@ -43,6 +43,10 @@ _SIGNATURES = {
     # ring, table, specs, convs, pre; lanes, n, q, T; stream
     "fdl_b5_step": [_P] * 5 + [_I] * 4 + [_P],
     "fdl_b5p_step": [_P] * 5 + [_I] * 4 + [_P],
+    # x, ring, hist, h_ir, t_ir, overlap, tw_b, tw_m, scratch, y, overlap_out,
+    # pre_h, pre_t, w, d_pre, d_out, d_rows; voices, b, n, T, cur, cur_new,
+    # meta, fwd_per, fin_per; stream
+    "fdl_b6_heads": [_P] * 17 + [_I] * 9 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

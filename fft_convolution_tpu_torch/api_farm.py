@@ -3,8 +3,9 @@
 
 V two-stage voices with distinct long IRs are batched on one device: the
 head and tail0 stages as one combined causal convolution along the block
-axis (its kernel meta-spectra cached per call length), the big tail on
-kernel B5 (:mod:`.ops.cuda_farm_mac`).  A short-IR farm (IRs of at most two
+axis on kernel B6 (:mod:`.ops.cuda_farm_heads`, which reads the raw tables:
+no meta-spectra are cached), the big tail on kernel B5
+(:mod:`.ops.cuda_farm_mac`).  A short-IR farm (IRs of at most two
 tail blocks: no big tail) streams through the two-stage engine's aligned
 path over the voice axis, its stages' meta-spectra cached per call length.
 The contract mirrors the per-voice
@@ -30,8 +31,7 @@ import numpy as np
 import torch
 
 from .models import two_stage
-from .ops import cuda_farm_mac
-from .ops.fft import next_power_of_two
+from .ops import cuda_farm_heads, cuda_farm_mac
 from .parallel import farm2
 
 # The JAX package's transform tiers; they count TPU matrix-unit passes
@@ -56,10 +56,14 @@ class ReverbFarm:
     tail_dtype : ``torch.float32`` (default) or ``torch.bfloat16``: bf16
         pairs for the big tail's ring and table, half the bytes kernel B5
         reads, with ~1e-3 relative error on the tail contribution.
-    tail_mac : ``"auto"`` only: kernel B5 for a farm on a CUDA device, its
-        plain PyTorch version on the CPU.  The step is the attribute
-        ``_step``; setting it to ``cuda_farm_mac.phased_step_plain`` runs
-        the plain version on the card.
+    tail_mac : ``"auto"`` only: kernels B5 and B6 for a farm on a CUDA
+        device, their plain PyTorch versions on the CPU.  The big tail's
+        step is the attribute ``_step`` and the head path ``_heads``;
+        setting them to ``cuda_farm_mac.phased_step_plain`` and
+        ``cuda_farm_heads.heads_step_plain`` runs the plain versions on the
+        card.  B6 takes ``4 <= block_size <= 2048`` and at most 1024 head
+        segments (``tail_block / block_size``); a card farm with a big tail
+        of another shape raises ``ValueError`` at construction.
     dft_precision, tail_dft_precision : accepted and checked for the JAX
         package's names (``"auto"``, ``"highest"``, ``"high"``,
         ``"default"``, ``"bf16"``).  Those tiers count a TPU's matrix-unit
@@ -112,10 +116,11 @@ class ReverbFarm:
             else farm2.max_blocks_per_call(self.cfg.period, self.cfg.tail.seg_count))
         self._step = (cuda_farm_mac.phased_step_packed if tail_dtype == torch.bfloat16
                       else cuda_farm_mac.phased_step)
-        # head-kernel meta-spectra per meta length m, with the call length
-        # that built them (the short-IR farm: two_stage.small_stream_khats
-        # per call length T): input-independent between IR updates
-        self._khat_cache: dict[int, tuple[int, torch.Tensor] | dict] = {}
+        self._heads = cuda_farm_heads.heads_step
+        # the short-IR farm's stage meta-spectra per call length T
+        # (two_stage.small_stream_khats): input-independent between IR
+        # updates.  The big-tail farm caches none: B6 reads the raw tables.
+        self._khat_cache: dict[int, dict] = {}
 
     @property
     def local_voices(self) -> range:
@@ -162,11 +167,7 @@ class ReverbFarm:
             if t not in self._khat_cache:
                 self._khat_cache[t] = two_stage.small_stream_khats(self.cfg, self.state, t)
             return farm2.farm2_stream(self.cfg, self.state, x, head_khat=self._khat_cache[t])
-        m = next_power_of_two(2 * self.cfg.head.seg_count - 1 + t)
-        if m not in self._khat_cache:
-            self._khat_cache[m] = (t, farm2.farm2_head_khat(self.cfg, self.state, t))
-        return farm2.farm2_stream(self.cfg, self.state, x, self._step,
-                                  head_khat=self._khat_cache[m][1])
+        return farm2.farm2_stream(self.cfg, self.state, x, self._step, heads=self._heads)
 
     def _check_irs(self, new_irs, count: int) -> torch.Tensor:
         new_irs = torch.as_tensor(new_irs, dtype=torch.float32, device=self.device)
@@ -194,8 +195,8 @@ class ReverbFarm:
     def update_voices(self, voice_idx, new_irs) -> None:
         """RT-safe IR swap for a subset of voices at a period boundary
         (:func:`.parallel.farm2.farm2_update_voices`): only the touched
-        voices' tables and pending rows are rewritten and their cached head
-        meta-spectra recomputed; the other voices continue bit-identically.
+        voices' tables and pending rows are rewritten; the other voices
+        continue bit-identically.
         All ``V`` voices at once take :meth:`update`.  With a mesh,
         ``voice_idx`` are global indices and this rank applies those of
         :attr:`local_voices`."""
@@ -217,19 +218,7 @@ class ReverbFarm:
             return
         idx, new_irs = idx[own] - self._local.start, new_irs[torch.from_numpy(own).to(self.device)]
         farm2.farm2_update_voices(self.cfg, self.state, idx, new_irs)
-        if self.cfg.tail is None:
-            self._khat_cache.clear()  # rebuilt whole at the next call
-            return
-        vidx = torch.from_numpy(idx).to(self.device)
-        patched = {}
-        for m, (t, kh) in self._khat_cache.items():
-            # a copy (a clone may share the cached tensor) with the same
-            # strides: the head's inverse transform takes another path for
-            # another layout, and untouched voices must stay bit-identical
-            kh = kh.clone()
-            kh[vidx] = farm2.farm2_head_khat_voices(self.cfg, self.state, t, vidx)
-            patched[m] = (t, kh)
-        self._khat_cache = patched
+        self._khat_cache.clear()  # the short-IR farm's, rebuilt whole at the next call
 
     def reset(self) -> None:
         """Clear all input state; keep the IR tables (``FFTConvolver::reset``

@@ -12,9 +12,10 @@ single-device engine on the same inputs (1e-5), on tiny shapes (block 8):
 * on a 1-D ``"dp"`` mesh of all ``n`` ranks: the two-stage farm (each
   rank's ``voice_slab`` through ``farm2_stream``), then ``farm2_update_voices``
   of one voice on the sharded farm, the bf16 tail, and the cached head
-  meta-spectra cut to the rank's voices.  Each rank steps its own voices
-  through kernel B5 (B5p for bf16) on the card, its plain version on the
-  CPU.
+  meta-spectra cut to the rank's voices (through the plain head path, which
+  takes them; kernel B6 reads the raw tables).  Each rank steps its own
+  voices through kernels B5 (B5p for bf16) and B6 on the card, their plain
+  versions on the CPU.
 
 Run: ``python -m fft_convolution_tpu_torch.examples.dryrun_multichip
 [--ranks 4] [--device cuda|cpu]`` (the card by default, every rank on
@@ -24,12 +25,13 @@ Run: ``python -m fft_convolution_tpu_torch.examples.dryrun_multichip
 from __future__ import annotations
 
 import argparse
+import functools
 
 import numpy as np
 import torch
 
 from ..models import two_stage, uniform
-from ..ops import cuda_farm_mac
+from ..ops import cuda_farm_heads, cuda_farm_mac
 from ..parallel import farm, farm2, partition, two_stage_sp
 from ..parallel.mesh import make_mesh, mesh_device, run_ranks, voice_range
 
@@ -116,7 +118,9 @@ def _rank(rank: int, world: int, device: str) -> dict:
                                  farm2.farm2_stream(b2cfg, b2state, xf2, packed)[:, own])
     # the head meta-spectra of the whole farm, cut to the rank's voices
     errs["dp farm2 head khat"] = _err(
-        farm2.farm2_stream(f2cfg, fresh, xf2[:, own], head_khat=khat[own]),
+        farm2.farm2_stream(f2cfg, fresh, xf2[:, own],
+                           heads=functools.partial(cuda_farm_heads.heads_step_plain,
+                                                   khat=khat[own])),
         y_ref[:, own])
     return errs
 

@@ -2,7 +2,8 @@
 ``src/fft_convolver.rs:8-84``) on ``torch.fft``, plus the wrappers of the
 hand-written CUDA kernels: B1 and B1p (:mod:`.cuda_engine`), B2
 (:mod:`.cuda_two_stage`), B3 (:mod:`.cuda_crossfade`), B4
-(:mod:`.cuda_stream`) and B5 (:mod:`.cuda_farm_mac`).
+(:mod:`.cuda_stream`), B5 (:mod:`.cuda_farm_mac`) and B6
+(:mod:`.cuda_farm_heads`).
 
 Public L0 surface (mirroring the reference's ``pub`` items, as far as
 ported): ``Fft``, ``complex_size``, ``copy_and_pad``, ``next_power_of_two``

@@ -9,9 +9,11 @@ The stream is the aligned two-stage decomposition
   period is exactly the head's segment count ``n``, so tail0's one-period
   delay is a shift of ``n`` segments, and one combined ``2n``-segment
   kernel (:func:`..models.two_stage.combined_head_kernel`) gives ``head +
-  delay_1(tail0)`` in one causal convolution along the block axis
-  (:func:`..ops.fft.causal_conv_time`, ``torch.fft``).  The ``n - 1`` input
-  spectra before the ring are the state's own ``hist`` field.
+  delay_1(tail0)`` in one causal convolution along the block axis: on the
+  card kernel B6 (:mod:`..ops.cuda_farm_heads`: the forward transforms, one
+  thread block a (voice, bin) column, the inverse transforms and the delay
+  line), on the CPU its plain version over ``torch.fft``.  The ``n - 1``
+  input spectra before the ring are the state's own ``hist`` field.
 * **big tail** (block ``tb``): a fused ring and table of ``[N, V, tb+1]``
   bins (bf16 pairs with ``tail_dtype=torch.bfloat16``) stepped by kernel B5
   (:mod:`..ops.cuda_farm_mac`) with a phase scalar ``q``: the ring rows stay
@@ -55,10 +57,9 @@ import torch
 from ..models import two_stage, uniform
 from ..models.two_stage import (TwoStageConfig, TwoStageState, combined_head_kernel,
                                 compute_tail_block_size)
-from ..ops import cuda_farm_mac
+from ..ops import cuda_farm_heads, cuda_farm_mac
 from ..ops.cuda_engine import to_bf16
-from ..ops.fft import (causal_conv_khat, causal_conv_time, irdft_block,
-                       next_power_of_two, rdft_block)
+from ..ops.fft import causal_conv_khat, irdft_block, next_power_of_two, rdft_block
 from . import farm
 
 TAIL_DTYPES = (torch.float32, torch.bfloat16)
@@ -113,13 +114,25 @@ def farm2_bytes_per_voice(block: int, ir_len: int, t_blocks: int,
     State: head and tail0 stages (ring and table ``complex64 [n, B+1]``
     each, buffers), ``hist``, the big tail's ring and single table
     (``N x (tb+1)`` bins of ``tail_item`` bytes: 8 complex64, 4 bf16), its
-    pre and overlap, the two pending period buffers, and the cached head
-    kernel meta-spectra ``[m, B+1]`` with ``m = npo2(2n - 1 + t_blocks)``.
-    Transients of a ``t_blocks`` call: the head's causal convolution (ext,
-    its meta-spectra, their product and its inverse: four ``[m, B+1]``
-    complex64 arrays), the tail's spectra and sums (``T`` rows of ``tb+1``
-    complex64 each) and inverse (``T x 2tb`` f32).  Kernel B5 keeps no
-    ring-sized temporary."""
+    pre and overlap, the two pending period buffers.  No meta-spectra:
+    kernel B6 transforms the raw tables.  Transients of a ``t_blocks`` call
+    of ``q`` tail blocks, the larger of its two phases: the big tail (run
+    first) holds its inverse transform's operands, the B5 sums, cuFFT's copy
+    of them and cuFFT's workspace (``3q x (tb+1)`` complex64: the workspace
+    taken as one more operand, as measured) and the samples (``q x 2tb``
+    f32); the head path (B6) its bins-major spectra and convolution (``2T x
+    (B+1)`` complex64), the output ``y`` (``T x B`` f32; the caller's input
+    is not counted) and the tail rows it adds (``q x tb`` f32).  B5 keeps no
+    ring-sized temporary and B6 no ``m``-sized one.  On the card the model
+    is within 2 % of the measured peak (the state held plus
+    ``torch.cuda.max_memory_allocated`` over an 8-period call and over a
+    4096-block call, the guard's own length, of 128 voices of 60 s IRs at
+    block 128, f32 and bf16 tails: ``chip_smoke.py`` phase 13, which gates
+    it); it does not count the caching allocator's rounding.
+
+    The short-IR farm (no big tail) streams through the block-axis conv
+    core: its state holds the cached meta-spectra ``[m, B+1]``, ``m =
+    npo2(2n - 1 + t_blocks)``, and a call four transients of that size."""
     tb, n_t = _tail_segments(block, ir_len)
     n = tb // block
     bins, tbins = block + 1, tb + 1
@@ -127,12 +140,15 @@ def farm2_bytes_per_voice(block: int, ir_len: int, t_blocks: int,
     def stage(rows: int, width: int, nb: int, item: int = 8) -> int:
         return 2 * rows * nb * item + 2 * width * 4 + nb * 8
 
-    m = next_power_of_two(2 * n - 1 + t_blocks)
-    t_tail = -(-t_blocks * block // tb)
+    q = -(-t_blocks * block // tb)
     state = (2 * stage(n, block, bins) + stage(n_t, tb, tbins, tail_item)
-             + (n - 1) * bins * 8 + 2 * tb * 4 + m * bins * 8)
-    transients = 4 * m * bins * 8 + t_tail * (2 * tbins * 8 + 2 * tb * 4)
-    return state + transients
+             + (n - 1) * bins * 8 + 2 * tb * 4)
+    if n_t == 0:
+        m = next_power_of_two(2 * n - 1 + t_blocks)
+        return state + 5 * m * bins * 8 + q * (2 * tbins * 8 + 2 * tb * 4)
+    tail = q * (3 * tbins * 8 + 2 * tb * 4)
+    heads = 2 * t_blocks * bins * 8 + t_blocks * block * 4 + q * tb * 4
+    return state + max(tail, heads)
 
 
 def _stage_slice(irs: torch.Tensor, lo: int, cap: int, total: int) -> torch.Tensor:
@@ -169,6 +185,11 @@ def farm2_init(irs, block_size: int, max_response_length: int,
     exceeds the budget raises ``ValueError`` at construction instead of
     running out of memory later.  ``"auto"`` is the CUDA device's free
     memory, and no check on the CPU; a number pins it; None disables it.
+
+    On the card a farm with a big tail runs its head path on kernel B6,
+    which takes ``4 <= block_size <= 2048`` and at most 1024 head segments
+    (``tail_block / block_size``; :func:`..ops.cuda_farm_heads.heads_plan`):
+    other shapes raise ``ValueError`` here.
     """
     irs = torch.as_tensor(irs, dtype=torch.float32, device=device)
     if irs.ndim != 2:
@@ -184,6 +205,8 @@ def farm2_init(irs, block_size: int, max_response_length: int,
     if tail_dtype not in TAIL_DTYPES:
         raise ValueError(f"tail_dtype must be one of {TAIL_DTYPES}, got {tail_dtype}")
     tb, n_t = _tail_segments(block_size, max_response_length)
+    if n_t and irs.is_cuda:
+        cuda_farm_heads.heads_plan(tb // block_size, block_size, tb // block_size)
     if hbm_budget_bytes == "auto":
         hbm_budget_bytes = farm.device_budget(irs.device)
     if hbm_budget_bytes is not None:
@@ -347,8 +370,11 @@ def _tail_corr_phased_fused(cfg: uniform.UniformConfig, tail: TailState,
         raise ValueError(f"the phased core takes at most min(N={n}, "
                          f"{cuda_farm_mac.MAX_BLOCKS}) blocks per call, got {t}")
     specs = rdft_block(blocks_rows, cfg.fft_size).contiguous()  # [T, V, tb+1]
+    del blocks_rows  # each transient goes as soon as it is dead: the farm's peak
     convs, tail.pre = step(tail.ring, tail.table, specs, tail.q)
+    del specs
     outs = irdft_block(convs, cfg.fft_size)                # [T, V, 2tb]
+    del convs
     y = outs[:, :, :tb] + torch.cat([tail.overlap[None], outs[:-1, :, tb:]])
     tail.overlap = outs[-1, :, tb:].contiguous()
     tail.q = (tail.q + t) % n
@@ -359,7 +385,8 @@ def farm2_head_khat(cfg: TwoStageConfig, state: Farm2State, t: int) -> torch.Ten
     """The combined head kernel's meta-spectra for ``t``-block calls
     (``farm2_head_khat``, ``fft_convolution_tpu/parallel/farm2.py:855``):
     input-independent between IR updates; valid for any call length with
-    the same ``npo2(2n - 1 + t)``."""
+    the same ``npo2(2n - 1 + t)``.  Only the plain head path
+    (``heads_step_plain``) takes it; kernel B6 transforms the raw tables."""
     m = next_power_of_two(2 * cfg.head.seg_count - 1 + t)
     return causal_conv_khat(combined_head_kernel(state.head, state.tail0), m)
 
@@ -374,65 +401,25 @@ def farm2_head_khat_voices(cfg: TwoStageConfig, state: Farm2State, t: int,
     return causal_conv_khat(kern, m)
 
 
-def _heads_state_out(st_h: uniform.UniformState, st_t0: uniform.UniformState,
-                     ext: torch.Tensor, outs: torch.Tensor, t: int, n: int,
-                     hist0: int) -> torch.Tensor:
-    """Exit state of the fused head path, in place (``_heads_state_out``,
-    ``fft_convolution_tpu/parallel/farm2.py:891``): the head ring rebuilt
-    from the last ``n`` blocks of ``ext`` (``ext[hist0 + j]`` is new block
-    ``j``), both stages' ``current`` and ``pre_multiplied``, the head
-    overlap.  tail0's ring and overlap stay untouched (dead in the farm).
-    Returns the next call's ``hist``."""
-    b = st_h.overlap.shape[-1]
-    cur = (st_h.current - t) % n
-    st_h.segments, byd = uniform.ring_from_ext(ext, hist0 + t, n, cur)
-    st_h.pre_multiplied = (st_h.segments_ir[:, 1:] * byd[:, 1:]).sum(dim=1)
-    st_t0.pre_multiplied = (st_t0.segments_ir[:, 1:] * byd[:, 1:]).sum(dim=1)
-    st_h.current = st_t0.current = cur
-    st_h.overlap = outs[:, -1, b:].contiguous()
-    return ext[:, hist0 + t - 2 * n + 1:hist0 + t - n].contiguous()
-
-
-def _heads_fused(cfg: TwoStageConfig, st_h: uniform.UniformState,
-                 st_t0: uniform.UniformState, vx: torch.Tensor, hist: torch.Tensor,
-                 suppress: torch.Tensor, khat: torch.Tensor | None = None,
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``head + delay_1(tail0)`` for ``vx [V, T, B]`` through the combined
-    ``2n``-segment kernel (``_heads_fused``,
-    ``fft_convolution_tpu/parallel/farm2.py:931``).  Voices flagged in
-    ``suppress`` were updated right before this call: their first period
-    gets no tail0 contribution (the update zeroed their ``hist`` rows; a
-    small convolution of tail0's table with the ring removes the rest).
-    Returns ``(y [V, T, B], next hist)``."""
-    n, b, p = cfg.head.seg_count, cfg.head_block, cfg.period
-    v, t = vx.shape[:2]
-    specs = rdft_block(vx, 2 * b)                          # [V, T, B+1]
-    ring = uniform.ring_window(st_h.segments, st_h.current)  # blocks -n..-1
-    ext = torch.cat([hist, ring, specs], dim=1)            # [V, 2n-1+T, B+1]
-    conv = causal_conv_time(ext, combined_head_kernel(st_h, st_t0), t, kern_hat=khat)
-    if bool(suppress.any()):
-        ext_w = torch.cat([torch.zeros_like(ring[:, 1:]), ring], dim=1)  # [V, 2n-1, B+1]
-        w = causal_conv_time(ext_w, st_t0.segments_ir, p, m=2 * n)
-        conv[:, :p] -= w * suppress.to(conv.device)[:, None, None]
-    outs = irdft_block(conv, 2 * b)                        # [V, T, 2B]
-    y = outs[:, :, :b] + torch.cat([st_h.overlap[:, None], outs[:, :-1, b:]], dim=1)
-    return y, _heads_state_out(st_h, st_t0, ext, outs, t, n, 2 * n - 1)
-
-
 def farm2_stream(cfg: TwoStageConfig, state: Farm2State | TwoStageState,
                  blocks: torch.Tensor, step: Callable = cuda_farm_mac.phased_step,
-                 head_khat: torch.Tensor | dict | None = None) -> torch.Tensor:
+                 head_khat: dict | None = None,
+                 heads: Callable = cuda_farm_heads.heads_step) -> torch.Tensor:
     """Stream ``blocks [T, V, B] -> [T, V, B]`` (``farm2_stream``,
     ``fft_convolution_tpu/parallel/farm2.py:1040``), ``T`` a multiple of
     the period; the state advances in place.  ``step`` is the big tail's
     phased step (:func:`..ops.cuda_farm_mac.phased_step`,
-    ``phased_step_packed`` for bf16 storage, or ``phased_step_plain``).
-    ``head_khat``: :func:`farm2_head_khat` for this call's meta length; for
-    the short-IR farm, :func:`..models.two_stage.small_stream_khats` of the
-    voice-stacked state for this ``T``, which sends both small stages to
-    the uniform conv core (their rings are full and clean: every update is
-    at full capacity).  The short-IR farm streams its small stages apart,
-    as the JAX farm does with its own small-stream core
+    ``phased_step_packed`` for bf16 storage, or ``phased_step_plain``);
+    ``heads`` the head path (:func:`..ops.cuda_farm_heads.heads_step`,
+    kernel B6, or ``heads_step_plain``, with :func:`farm2_head_khat` bound
+    by ``functools.partial`` for the cached meta-spectra).  The big tail
+    runs first, so the head path adds the delay line as it writes ``y``.
+    ``head_khat``: the short-IR farm's
+    :func:`..models.two_stage.small_stream_khats` of the voice-stacked state
+    for this ``T``, which sends both small stages to the uniform conv core
+    (their rings are full and clean: every update is at full capacity).
+    The short-IR farm streams its small stages apart, as the JAX farm does
+    with its own small-stream core
     (``fft_convolution_tpu/parallel/farm2.py:1075``), so the fused front
     end never runs here."""
     b, tb, p = cfg.head_block, cfg.tail_block, cfg.period
@@ -443,23 +430,19 @@ def farm2_stream(cfg: TwoStageConfig, state: Farm2State | TwoStageState,
     if cfg.tail is None:
         return two_stage.process_stream_aligned(cfg, state, blocks.transpose(0, 1), head_khat,
                                                 fuse_small=False).transpose(0, 1).contiguous()
-    vx = blocks.transpose(0, 1)                            # [V, T, B]
-    y, state.hist = _heads_fused(cfg, state.head, state.tail0, vx, state.hist,
-                                 state.suppress, head_khat)
-    big_rows = blocks.reshape(q, p, v, b).transpose(1, 2).reshape(q, v, tb)
-    out_t = _tail_corr_phased_fused(cfg.tail, state.tail, big_rows, step)
-    # the two-period delay line, slot by slot: the pending precalc, the
-    # pending output, then this call's early big-tail outputs
-    yq = y.view(v, q, tb)
-    yq[:, 0] += state.tail_precalc
-    if q >= 2:
-        yq[:, 1] += state.tail_output
-    if q > 2:
-        yq[:, 2:] += out_t[:-2].transpose(0, 1)
+    if head_khat is not None:
+        raise ValueError("head_khat is the short-IR farm's; bind farm2_head_khat into "
+                         "heads=functools.partial(heads_step_plain, khat=...)")
+    out_t = _tail_corr_phased_fused(
+        cfg.tail, state.tail, blocks.reshape(q, p, v, b).transpose(1, 2).reshape(q, v, tb), step)
+    # the two-period delay line: the pending precalc into period 0, the
+    # pending output into period 1, this call's early big-tail outputs after
+    y = heads(state.head, state.tail0, blocks, state.hist, state.suppress,
+              delay=(state.tail_precalc, state.tail_output, out_t))
     state.tail_precalc = out_t[-2].clone() if q >= 2 else state.tail_output
     state.tail_output = out_t[-1].clone()
     state.suppress.fill_(False)
-    return y.transpose(0, 1).contiguous()
+    return y
 
 
 def voice_slab(state: Farm2State | TwoStageState, voices: range) -> Farm2State | TwoStageState:

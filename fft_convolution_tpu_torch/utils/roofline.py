@@ -26,7 +26,8 @@ implementation can read above 100 %:
   and the new spectra, 6 FLOPs a complex product, one inverse a table,
   with the IR's meta-spectrum cached as every wrapper caches it; for head
   + tail0, also the combined ``2n``-segment kernel of the fused front end
-  and the farm's heads (one inverse a block).
+  and the farm's heads (one inverse a block), by overlap-save at the
+  cheapest meta size (kernel B6's form; one transform is the largest).
 
 So the count does not depend on the route: the fused MULTI, fused
 SEPARATE and separate-streams forms of an aligned two-stage call, its
@@ -67,7 +68,8 @@ are Python numbers, exact at the farm's size):
   ``stream_conv_cost(cfg.tail, 1)``;
 * B2 step: :func:`two_stage_step_cost`; B3 step:
   ``crossfade_stream_cost(cfg, 1)``;
-* B5 / B5p step: :func:`farm_tail_step_cost`;
+* B5 / B5p step: :func:`farm_tail_step_cost`; B6 call:
+  :func:`farm_heads_cost`;
 * aligned ``FFTConvolver.process`` and ``farm.farm_stream``:
   :func:`stream_conv_cost` (``voices``); aligned two-stage call:
   :func:`two_stage_stream_cost`; two-engine crossfade:
@@ -193,6 +195,22 @@ def _mac_flops(rows: list[int], bins: int, t: int) -> float:
     return min(direct, axis)
 
 
+def _overlap_save_flops(taps: int, bins: int, t: int) -> float:
+    """A causal convolution of ``t`` new rows with a ``taps``-row kernel
+    along the block axis, its meta-spectrum held, for ``bins`` lanes: the
+    fewest FLOPs over overlap-save at meta sizes ``M`` (powers of two from
+    ``npo2(taps)`` to ``npo2(t + taps - 1)``, the last one transform), each
+    ``ceil(t / (M - taps + 1))`` segments of a forward and an inverse
+    complex transform and a product."""
+    best, m = math.inf, _npo2(taps)
+    while True:
+        segs = -(-t // (m - taps + 1))
+        best = min(best, segs * (2 * fft_cost(m, real=False).flops + 6.0 * m))
+        if segs == 1:
+            return bins * best
+        m *= 2
+
+
 def _history(rows_kept: int, tables: list[int], bins: int, t: int,
              ring_item: int = C64, table_item: int = C64) -> Cost:
     """A frequency-delay line's state for ``t`` blocks, without the MAC:
@@ -246,16 +264,16 @@ def _heads(cfg, t: int, history: int, overlaps: int) -> Cost:
     the blocks in, the output out, ``overlaps`` overlaps in and out.
     FLOPs: the forward transforms, then the fewest of the per-block and
     block-axis MACs with one inverse a stage and (tail0 of the head's
-    config) the combined ``2n``-segment kernel at ``m = npo2(t + 2n - 1)``
-    with one inverse a block."""
+    config) the combined ``2n``-segment kernel by overlap-save
+    (:func:`_overlap_save_flops`; kernel B6's form, its single transform
+    included) with one inverse a block."""
     h, z = cfg.head, cfg.tail0
     n, b = h.seg_count, h.block_size
     tables = [n] + ([z.seg_count] if z is not None else [])
     inv = fft_cost(2 * b, t).flops
     flops = _mac_flops(tables, b + 1, t) + len(tables) * inv
     if z is not None and z.seg_count == n:
-        m = _npo2(t + 2 * n - 1)
-        flops = min(flops, (b + 1) * (2 * fft_cost(m, real=False).flops + 6.0 * m) + inv)
+        flops = min(flops, _overlap_save_flops(2 * n, b + 1, t) + inv)
     ov = overlaps * b
     return (_history(history, tables, b + 1, t)
             + Cost(flops=fft_cost(2 * b, t).flops + flops)
@@ -357,9 +375,19 @@ def farm_cost(cfg, voices: int, t: int, tail_item: int = C64) -> Cost:
         return two_stage_stream_cost(cfg, t, voices)
     q = _aligned_t(cfg, t)
     b, tb = cfg.head_block, cfg.tail_block
-    n = cfg.head.seg_count
-    heads = _heads(cfg, t, 2 * n - 1, 1)  # tail0's overlap is dead in the farm
     tail = (_big_tail(cfg.tail, q, tail_item) + Cost(bytes=(tb + 1) * C64)
             + _tail_buffers(tb, q))
-    one = heads + tail + Cost(flops=2 * t * b)
-    return one.scaled(voices) + _twiddles(b) + _twiddles(tb)
+    return (farm_heads_cost(cfg, voices, t) + (tail + Cost(flops=2 * t * b)).scaled(voices)
+            + _twiddles(tb))
+
+
+def farm_heads_cost(cfg, voices: int, t: int) -> Cost:
+    """Kernel B6: the farm's head path over ``t`` head blocks (a positive
+    multiple of the period) on ``voices`` voices (``farm_cost``'s head
+    term): the ``2n - 1``-row history (ring and ``hist``) and both tables
+    read, the replaced rows written, the blocks in and the output out, the
+    head overlap in and out (tail0's is dead in the farm), the block
+    transforms' twiddles; FLOPs as :func:`_heads`."""
+    _aligned_t(cfg, t)
+    n = cfg.head.seg_count
+    return _heads(cfg, t, 2 * n - 1, 1).scaled(voices) + _twiddles(cfg.head_block)

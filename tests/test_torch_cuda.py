@@ -1,4 +1,4 @@
-"""Kernels B1, B1p, B2, B3, B4 and B5 on the card against their plain
+"""Kernels B1, B1p, B2, B3, B4, B5 and B6 on the card against their plain
 PyTorch versions; B1-B3 also for their arrival counters (one launch a
 step); the mesh forms on two gloo ranks sharing the card; the flagship
 batched two-stage call (fused front end, CHRONO tail) on the card.
@@ -22,8 +22,9 @@ import torch
 
 from fft_convolution_tpu_torch import ReverbFarm
 from fft_convolution_tpu_torch.models import crossfade, uniform
-from fft_convolution_tpu_torch.ops import (cuda_crossfade, cuda_engine, cuda_farm_mac,
-                                           cuda_stream, cuda_two_stage)
+from fft_convolution_tpu_torch.ops import (cuda_crossfade, cuda_engine, cuda_farm_heads,
+                                           cuda_farm_mac, cuda_stream, cuda_two_stage)
+from fft_convolution_tpu_torch.parallel import farm2
 from fft_convolution_tpu_torch.serving import (CudaCrossfadeConvolver, CudaFFTConvolver,
                                                CudaStreamingConvolver, CudaTwoStageConvolver)
 
@@ -625,6 +626,117 @@ def test_reverb_farm_on_card_matches_cpu(dev, tail_dtype):
         tol = 2e-5 if tail_dtype == torch.float32 else 5e-3
         assert float((got - want).abs().max()) <= tol * scale, f"call {call}"
     assert launches.launches == before + 4
+
+
+# ---- kernel B6: the reverb farm's head path --------------------------------------
+
+def _b6_state(rng, v, b, ir_len, dev):
+    """A farm's head-side state on the card with a random history in the
+    ring, hist and overlap (spectra of random real blocks: a C2R transform
+    reads only the Hermitian part, so the imaginary parts of the DC and
+    Nyquist bins must be those of a real signal), and the ring head off 0."""
+    irs = torch.from_numpy((rng.standard_normal((v, ir_len)) * 0.05).astype(np.float32))
+    cfg, st = farm2.farm2_init(irs.to(dev), b, ir_len)
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    for t in (st.head.segments, st.hist):
+        if t.numel():  # hist has no rows at n = 1
+            t.copy_(torch.fft.rfft(torch.randn(t.shape[:-1] + (b,), generator=gen,
+                                               device=dev), n=2 * b))
+    st.head.overlap = torch.randn(st.head.overlap.shape, generator=gen, device=dev) * 0.1
+    st.head.current = st.tail0.current = cfg.head.seg_count // 3
+    return cfg, st
+
+
+def _b6_call(st, x, delay, step):
+    return step(st.head, st.tail0, x, st.hist, st.suppress, delay)
+
+
+def _b6_exit(st):
+    return (st.head.segments, st.hist, st.head.overlap, st.head.pre_multiplied,
+            st.tail0.pre_multiplied)
+
+
+@pytest.mark.parametrize("v,b,ir_len,periods", [
+    (3, 64, 9000, (1, 2, 8)),          # n = 16, M = 256, teams of 4 threads
+    (2, 128, 4 * 48000, (1, 3, 16)),   # n = 64, M = 256, 16 segments a column
+    (2, 128, 60 * 48000, (1, 8)),      # the farm's shape: n = 256, M = 1024
+    (1, 2048, 12288, (1, 16)),         # n = 2, teams of 128 on named barriers
+    (2, 2048, 6000, (1, 8)),           # n = 1: no hist rows, no pre terms
+    (2, 256, 100_000, (1, 5)),         # n = 32, teams of 16
+    (2, 4, 2000, (1, 3)),              # n = 32, one thread a block transform (radix 4)
+    (1, 16, 8_000_000, (1,)),          # n = 1024, M = 4096, three radix-16 stages
+])
+def test_b6_kernel_matches_plain(dev, v, b, ir_len, periods):
+    """B6 against heads_step_plain over calls of several periods, the state
+    carried, without and with the suppress pass (voice 0 flagged) and with
+    the big tail's delay line: the output and every exit field, to float32
+    rounding in another order; current the same."""
+    rng = np.random.default_rng(170 + b)
+    cfg, st = _b6_state(rng, v, b, ir_len, dev)
+    n = cfg.head.seg_count
+    plain = st.clone()
+    before = cuda_farm_heads.heads_step.launches
+    calls = 0
+    for suppress in (False, True):
+        for k in periods:
+            st.suppress[0] = plain.suppress[0] = suppress
+            x = torch.from_numpy(rng.standard_normal((k * n, v, b)).astype(np.float32)).to(dev)
+            delay = tuple(torch.from_numpy((rng.standard_normal(shape) * 0.1)
+                                           .astype(np.float32)).to(dev)
+                          for shape in ((v, n * b), (v, n * b), (k, v, n * b)))
+            y = _b6_call(st, x, delay, cuda_farm_heads.heads_step)
+            yp = _b6_call(plain, x, delay, cuda_farm_heads.heads_step_plain)
+            torch.cuda.synchronize()
+            calls += 1
+            what = f"n={n} T={k * n} suppress={suppress}"
+            _close(y, yp, f"y {what}")
+            for name, got, want in zip(("ring", "hist", "overlap", "pre head", "pre tail0"),
+                                       _b6_exit(st), _b6_exit(plain)):
+                assert got.shape == want.shape, f"{name} {what}"
+                if want.numel():  # hist has no rows at n = 1
+                    _close(got, want, f"{name} {what}")
+            assert st.head.current == plain.head.current == st.tail0.current
+    assert cuda_farm_heads.heads_step.launches == before + calls
+
+
+def test_b6_replays_bit_exact(dev):
+    """Fixed-order sums and no atomics: one call from one state twice gives
+    bit-equal outputs and exit states (the dp mesh's slab gate relies on it),
+    and a voice's result does not depend on the others (its slab alone)."""
+    rng = np.random.default_rng(180)
+    cfg, st = _b6_state(rng, 4, 128, 4 * 48000, dev)
+    n = cfg.head.seg_count
+    x = torch.from_numpy(rng.standard_normal((2 * n, 4, 128)).astype(np.float32)).to(dev)
+    st.suppress[1] = True
+    runs = []
+    for _ in range(2):
+        s = st.clone()
+        runs.append((_b6_call(s, x, None, cuda_farm_heads.heads_step), *_b6_exit(s)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    slab = farm2.voice_slab(st, range(2, 4))
+    y = _b6_call(slab, x[:, 2:].contiguous(), None, cuda_farm_heads.heads_step)
+    assert torch.equal(y, runs[0][0][:, 2:])
+
+
+def test_b6_rejects_bad_operands(dev):
+    rng = np.random.default_rng(181)
+    cfg, st = _b6_state(rng, 2, 64, 9000, dev)
+    n = cfg.head.seg_count
+    x = torch.zeros((n, 2, 64), device=dev)
+    step = cuda_farm_heads.heads_step
+    with pytest.raises(ValueError, match="multiple of the period"):
+        step(st.head, st.tail0, torch.zeros((n + 1, 2, 64), device=dev), st.hist, st.suppress)
+    with pytest.raises(ValueError, match="hist"):
+        step(st.head, st.tail0, x, st.hist[:1], st.suppress)
+    with pytest.raises(ValueError, match="delay"):
+        step(st.head, st.tail0, x, st.hist, st.suppress,
+             delay=(st.tail_output, st.tail_output, st.tail_output))
+    st.head.segments = st.head.segments.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="not contiguous"):
+        step(st.head, st.tail0, x, st.hist, st.suppress)
+    # a farm with a big tail checks B6's limits when it is built on the card
+    with pytest.raises(ValueError, match="at least 4"):
+        ReverbFarm(torch.zeros((1, 9000), device=dev), 2, 9000, device=dev)
 
 
 # ---- the mesh: two gloo ranks sharing the card (parallel.mesh.run_ranks) -----------

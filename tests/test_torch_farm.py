@@ -1,5 +1,7 @@
-"""The port's reverb farm on the CPU: the plain version of kernel B5
-(``phased_step_plain``), the block-axis causal convolution, the voice-stacked
+"""The port's reverb farm on the CPU: the plain versions of kernels B5
+(``phased_step_plain``) and B6 (``heads_step_plain``, and B6's launch
+plan and the farm's memory model from the shapes), the block-axis causal
+convolution, the voice-stacked
 uniform stages, ``farm2`` and ``ReverbFarm``, held against the JAX package
 (its Pallas kernel in interpret mode and its jnp core) on the same
 numpy-seeded inputs, from init and from states carried by ``interop``.
@@ -28,7 +30,7 @@ from fft_convolution_tpu.parallel import farm2 as jfarm2
 from fft_convolution_tpu_torch import ReverbFarm, interop
 from fft_convolution_tpu_torch.api_two_stage import TwoStageFFTConvolver
 from fft_convolution_tpu_torch.models import uniform
-from fft_convolution_tpu_torch.ops import cuda_farm_mac
+from fft_convolution_tpu_torch.ops import cuda_farm_heads, cuda_farm_mac
 from fft_convolution_tpu_torch.ops import fft as tfft
 from fft_convolution_tpu_torch.ops.fft import packed_to_complex
 from fft_convolution_tpu_torch.parallel import farm, farm2
@@ -407,6 +409,169 @@ def test_farm2_capacity_guard_explicit_budgets():
     farm2.farm2_init(irs, B, IR_LEN, hbm_budget_bytes=4 * per_voice)
     farm2.farm2_init(irs, B, IR_LEN, tail_dtype=torch.bfloat16, hbm_budget_bytes=4 * bf16)
     farm2.farm2_init(irs, B, IR_LEN, hbm_budget_bytes=None)
+
+
+# ---- kernel B6's plain version: the head path ------------------------------------
+
+def _jax_hist(jst, jcfg):
+    """The JAX farm's head history ``[V, n-1, 2, B]`` from the period-buffer
+    planes it keeps it in (as ``farm2_stream`` reads it)."""
+    v, b, p, n = jst.tail_output.shape[0], jcfg.head_block, jcfg.period, jcfg.head.seg_count
+    return jnp.stack([jst.tail_precalc0.reshape(v, p, b)[:, :n - 1],
+                      jst.tail_output0.reshape(v, p, b)[:, :n - 1]], axis=2)
+
+
+@pytest.mark.parametrize("suppress", [False, True], ids=["no-suppress", "suppress"])
+@pytest.mark.parametrize("periods", [1, 2, 4])
+def test_heads_step_plain_matches_jax(periods, suppress):
+    """heads_step_plain against the JAX package's _heads_fused (with its
+    _heads_state_out) on one state carried over by interop, the ring head
+    turned to 5 in both: the output, the rebuilt ring, hist, current,
+    overlap and both pre_multiplied.  With suppress, voices 0 and 2 were
+    updated right before the call (farm2_update_voices), so their first
+    period takes the suppress pass."""
+    rng = np.random.default_rng(80 + periods)
+    irs = _irs(rng, 3)
+    jcfg, jst = jfarm2.farm2_init(irs, B, IR_LEN)
+    p = jcfg.period
+    jst, _ = _jrun(jcfg, "jnp")(jst, jnp.asarray(
+        rng.standard_normal((3 * p, 3, B)).astype(np.float32)))
+    if suppress:
+        jst = jfarm2.farm2_update_voices(jcfg, jst, jnp.asarray([0, 2]),
+                                         jnp.asarray(_irs(rng, 2, 7000)))
+    head = jnp.full((3,), 5, jnp.int32)
+    jst = jst._replace(head=jst.head._replace(current=head),
+                       tail0=jst.tail0._replace(current=head))
+    st = interop.farm_state(jcfg, jst)
+    assert bool(st.suppress.any()) == suppress and st.head.current == 5
+    x = rng.standard_normal((periods * p, 3, B)).astype(np.float32)
+    jh, jt0, jy, jhist = jfarm2._heads_fused(jcfg, jst.head, jst.tail0,
+                                             jnp.swapaxes(jnp.asarray(x), 0, 1),
+                                             _jax_hist(jst, jcfg), jst.precalc_pos)
+    y = cuda_farm_heads.heads_step_plain(st.head, st.tail0, torch.from_numpy(x), st.hist,
+                                         st.suppress)
+    _close(y, np.swapaxes(np.asarray(jy), 0, 1), ATOL, "y")
+    want_h, want_t0 = interop.uniform_state(jh), interop.uniform_state(jt0)
+    _close(st.head.segments, want_h.segments, 2e-4, "head ring")
+    _close(st.hist, packed_to_complex(torch.from_numpy(np.asarray(jhist))), 2e-4, "hist")
+    _close(st.head.overlap, want_h.overlap, ATOL, "head overlap")
+    assert st.head.current == st.tail0.current == want_h.current == want_t0.current
+    for got, want in ((st.head.pre_multiplied, want_h.pre_multiplied),
+                      (st.tail0.pre_multiplied, want_t0.pre_multiplied)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=PRE_RTOL,
+                                   atol=PRE_RTOL * float(want.abs().max()))
+
+
+def test_heads_step_on_cpu_is_the_plain_version():
+    """heads_step takes the plain version for CPU tensors (no launch counted),
+    with the delay line added: the same output and exit state as
+    heads_step_plain; the plain version with the table's meta-spectra bound
+    (as a caller of farm2_stream binds them) matches the call without khat
+    to float32 rounding, and farm2_stream refuses head_khat for a big-tail
+    farm."""
+    rng = np.random.default_rng(86)
+    cfg, st = farm2.farm2_init(_irs(rng, 2), B, IR_LEN)
+    p = cfg.period
+    farm2.farm2_stream(cfg, st, torch.from_numpy(
+        rng.standard_normal((2 * p, 2, B)).astype(np.float32)), plain)
+    x = torch.from_numpy(rng.standard_normal((3 * p, 2, B)).astype(np.float32))
+    delay = tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                  for shape in ((2, p * B), (2, p * B), (3, 2, p * B)))
+    before = cuda_farm_heads.heads_step.launches
+    twin, other, bare = st.clone(), st.clone(), st.clone()
+    y = cuda_farm_heads.heads_step(st.head, st.tail0, x, st.hist, st.suppress, delay)
+    want = cuda_farm_heads.heads_step_plain(twin.head, twin.tail0, x, twin.hist,
+                                            twin.suppress, delay)
+    assert cuda_farm_heads.heads_step.launches == before
+    assert torch.equal(y, want) and torch.equal(st.hist, twin.hist)
+    assert torch.equal(st.head.segments, twin.head.segments)
+    khat = farm2.farm2_head_khat(cfg, other, 3 * p)
+    with_khat = functools.partial(cuda_farm_heads.heads_step_plain, khat=khat)
+    y_k = with_khat(other.head, other.tail0, x, other.hist, other.suppress, delay)
+    _close(y_k, want, ATOL, "with khat")
+    with pytest.raises(ValueError, match="short-IR farm"):
+        farm2.farm2_stream(cfg, bare.clone(), x, plain, head_khat=khat)
+    # the delay line: period 0 takes the precalc, 1 the output, 2 tail row 0
+    y_bare = cuda_farm_heads.heads_step_plain(bare.head, bare.tail0, x, bare.hist,
+                                              bare.suppress)
+    added = (y - y_bare).view(3, p, 2, B)
+    for period, want_d in enumerate((delay[0], delay[1], delay[2][0])):
+        _close(added[period], want_d.view(2, p, B).transpose(0, 1), ATOL, f"period {period}")
+
+
+def test_farm2_head_khat_voices_are_rows_of_the_whole():
+    """farm2_head_khat_voices (the plain head path's per-voice meta-spectra)
+    equals the rows of farm2_head_khat for those voices."""
+    rng = np.random.default_rng(88)
+    cfg, st = farm2.farm2_init(_irs(rng, 4), B, IR_LEN)
+    t = 3 * cfg.period
+    whole = farm2.farm2_head_khat(cfg, st, t)
+    _close(farm2.farm2_head_khat_voices(cfg, st, t, [3, 1]), whole[[3, 1]],
+           1e-6 * float(whole.abs().max()))
+
+
+@pytest.mark.parametrize("n,b,t,plan", [
+    (16, 64, 16, (256, 224, 1, 16, 16)),
+    (16, 64, 128, (256, 224, 1, 16, 16)),
+    (256, 128, 2048, (1024, 512, 4, 16, 16)),
+    (256, 128, 4096, (1024, 512, 8, 16, 16)),
+    (128, 1024, 512, (1024, 768, 1, 13, 12)),
+    (64, 512, 1024, (256, 128, 8, 16, 16)),
+    (1, 2048, 16, (256, 254, 1, 6, 5)),
+    (1024, 16, 2048, (4096, 2048, 1, 16, 16)),
+])
+def test_heads_plan_from_shapes(n, b, t, plan):
+    """B6's launch plan, a pure function of (n, B, T): the column transform
+    M, the least of 256, 1024 and 4096 that holds 4n, with S = M - 2n conv
+    rows a segment, and the tiles of the forward and finishing thread blocks
+    (teams of B/16 threads, 1024 threads and at most 16 blocks a thread
+    block, at most 15 teams of more than a warp, and what shared memory
+    holds: 13 teams at B = 1024, 6 at 2048; the finish inverts one block
+    more)."""
+    got = cuda_farm_heads.heads_plan(n, b, t)
+    assert (got.meta, got.step, got.segments, got.fwd_tile, got.fin_tile) == plan
+    assert cuda_farm_heads.column_smem(got.meta, n) <= cuda_farm_heads.MAX_SMEM
+
+
+def test_heads_plan_refuses_what_the_kernel_cannot_run():
+    with pytest.raises(ValueError, match="multiple of the period"):
+        cuda_farm_heads.heads_plan(16, 64, 24)
+    with pytest.raises(ValueError, match="at most 1024 head segments"):
+        cuda_farm_heads.heads_plan(2048, 16, 2048)
+    with pytest.raises(ValueError, match="power of two"):
+        cuda_farm_heads.heads_plan(16, 4096, 16)
+    with pytest.raises(ValueError, match="at least 4 samples"):
+        cuda_farm_heads.heads_plan(16, 2, 16)
+
+
+def test_farm2_bytes_per_voice_from_shapes():
+    """The capacity model from the port's shapes (block 64, 9000 taps: tail
+    block 1024, n = 16, N = 8): the state, no head meta-spectra, plus the
+    larger of the big tail's and the head path's transients; the short-IR
+    farm keeps the conv core's meta-spectra and transients."""
+    cfg, _ = farm2.farm2_init(_irs(np.random.default_rng(87), 1), B, IR_LEN)
+    n, n_t, tb, nb, tnb = 16, 8, 1024, 65, 1025
+    assert (cfg.head.seg_count, cfg.tail.seg_count, cfg.tail_block) == (n, n_t, tb)
+
+    def stage(rows, width, bins, item=8):
+        return 2 * rows * bins * item + 2 * width * 4 + bins * 8
+
+    for item in (8, 4):
+        state = (2 * stage(n, B, nb) + stage(n_t, tb, tnb, item) + (n - 1) * nb * 8
+                 + 2 * tb * 4)
+        for t in (16, 32, 128):
+            q = t // 16
+            tail = q * (3 * tnb * 8 + 2 * tb * 4)
+            heads = 2 * t * nb * 8 + t * B * 4 + q * tb * 4
+            assert farm2.farm2_bytes_per_voice(B, IR_LEN, t, item) == state + max(tail, heads)
+    # the short-IR farm (256 taps at block 64: tail block 128, n = 2, no big
+    # tail), an 8-block call: m = npo2(2n - 1 + 8) = 16, four tail blocks
+    assert farm2._tail_segments(B, 256) == (128, 0)
+    short = (2 * stage(2, B, nb) + stage(0, 128, 129) + nb * 8 + 2 * 128 * 4
+             + 5 * 16 * nb * 8 + 4 * (2 * 129 * 8 + 2 * 128 * 4))
+    assert farm2.farm2_bytes_per_voice(B, 256, 8) == short
+    # config 5's shape at its largest call: 1024 voices fit 80 GB in f32
+    assert 1024 * farm2.farm2_bytes_per_voice(128, 60 * 48000, 4096) < 80e9
 
 
 # ---- ReverbFarm (ports tests/test_api_farm.py) ---------------------------------------
@@ -809,18 +974,29 @@ def test_reverb_farm_long_call():
 
 
 def test_reverb_farm_khat_cache_patched_per_voice():
-    """update_voices recomputes only the touched voices' rows of each cached
-    head meta-spectrum, equal to a cache rebuilt from scratch."""
+    """The big-tail farm caches no head meta-spectra (its head path, kernel
+    B6 or the plain version, reads the raw tables every call), so
+    update_voice has nothing to patch: afterwards the touched voice follows
+    its new IR (against a farm built with it and streamed the same) and the
+    untouched voices continue bit-identically to a clone that skipped the
+    update."""
     farm_, irs, rng = _farm(seed=50)
     p = farm_.period
-    farm_.process(rng.standard_normal((p, V, B)).astype(np.float32))
-    farm_.process(rng.standard_normal((4 * p, V, B)).astype(np.float32))
-    assert len(farm_._khat_cache) == 2
-    before = {m: kh for m, (t, kh) in farm_._khat_cache.items()}
-    farm_.update_voice(2, _irs(rng, 1, 4000)[0])
-    for m, (t, kh) in farm_._khat_cache.items():
-        fresh = farm2.farm2_head_khat(farm_.cfg, farm_.state, t)
-        _close(kh, fresh, 1e-6 * float(fresh.abs().max()))
-        assert torch.equal(kh[:2], before[m][:2]) and kh.stride() == before[m].stride()
-    farm_.update(_irs(rng))
+    xs = [rng.standard_normal((k * p, V, B)).astype(np.float32) for k in (1, 4, 2)]
+    farm_.process(xs[0])
+    farm_.process(xs[1])
     assert not farm_._khat_cache
+    twin = farm_.clone()
+    new = _irs(rng, 1, 4000)[0]
+    farm_.update_voice(2, new)
+    assert not farm_._khat_cache
+    y, y_twin = farm_.process(xs[2]), twin.process(xs[2])
+    assert torch.equal(y[:, :2], y_twin[:, :2])
+    irs2 = irs.copy()
+    irs2[2] = 0.0
+    irs2[2, :len(new)] = new
+    ref = ReverbFarm(irs, B, IR_LEN, device="cpu")
+    ref.process(xs[0])
+    ref.process(xs[1])
+    ref.update(irs2)
+    _close(y[:, 2], ref.process(xs[2])[:, 2], ATOL, "updated voice")

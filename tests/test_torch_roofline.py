@@ -190,6 +190,42 @@ def test_farm_costs_by_hand():
     assert rl.farm_cost(short, 3, 8) == rl.two_stage_stream_cost(short, 8, voices=3)
 
 
+def test_farm_cost_is_heads_plus_tail():
+    """farm_cost ties to kernel B6's farm_heads_cost plus the big tail's
+    terms (its ring and table, pre, the pending period outputs, the stage
+    outputs summed, the tail transform's twiddles), in both storages; the
+    head term is the by-hand one of test_farm_costs_by_hand."""
+    cfg = small_two_stage()
+    nb = 17
+    for voices, t, item in ((2, 8, rl.C64), (3, 24, rl.BF16_PAIR), (1, 4, rl.C64)):
+        q, b, tb = t // cfg.period, cfg.head_block, cfg.tail_block
+        tail = (rl._big_tail(cfg.tail, q, item) + rl.Cost(bytes=(tb + 1) * rl.C64)
+                + rl._tail_buffers(tb, q) + rl.Cost(flops=2 * t * b))
+        want = rl.farm_heads_cost(cfg, voices, t) + tail.scaled(voices) + rl._twiddles(tb)
+        assert rl.farm_cost(cfg, voices, t, item) == want
+    heads = rl.farm_heads_cost(cfg, 2, 8)
+    assert heads.bytes == 2 * ((7 + 8 + 7) * nb * 8 + (2 * 8 * 16 + 2 * 16) * 4) + 2 * 16 * 8
+    assert heads.flops == 2 * (8 * rfft(32) + 8 * 8 * nb * 8 + 2 * 8 * rfft(32))
+    with pytest.raises(ValueError, match="multiple of the period"):
+        rl.farm_heads_cost(cfg, 2, 6)
+    # config 5's farm (n = 256, block 128, an 8-period call of 2048 blocks):
+    # overlap-save at M = 1024 (4 segments of 513 rows) beats the one
+    # 4096-point transform; 9.85 GFLOP for 128 voices, bound by operations
+    tb, n_t = farm2._tail_segments(128, 60 * SR)
+    h = uniform.make_config(128, tb)
+    fcfg = TwoStageConfig(head_block=128, tail_block=tb, head=h, tail0=h,
+                          tail=uniform.make_config(tb, n_t * tb))
+    os_1024 = 129 * 4 * (2 * cfft(1024) + 6 * 1024)
+    assert os_1024 < 129 * (2 * cfft(4096) + 6 * 4096)
+    big = rl.farm_heads_cost(fcfg, 128, 2048)
+    assert big.flops == 128 * (2 * 2048 * rfft(256) + os_1024)
+    # 2n - 1 history rows and both tables read, 511 rows written; blocks and overlap
+    assert big.bytes == 128 * ((511 + 512 + 511) * 129 * 8 + 2 * (2048 * 128 + 128) * 4) \
+        + 2 * 128 * 8
+    assert rl.bound(big, H100)["bound_by"] == "operations"
+    assert us(big) == pytest.approx(147.07, rel=1e-4)
+
+
 # ---- invariance: one function, one cost -----------------------------------------------
 
 def test_b4_and_the_conv_core_share_one_cost():
