@@ -421,7 +421,8 @@ def profile_steps(step, steps: int, warmup: int) -> dict:
     """Device time per step: ``step(i)`` for ``warmup`` calls, then a
     ``torch.profiler`` window over ``steps`` calls.  Sums the CUDA kernel
     events only (not the host-side rows, which would count each kernel
-    twice; not memory copies or sets).  A window that recorded no CUDA
+    twice; not memory copies or sets; not the spans' ranges on the card's
+    timeline, which are user annotations).  A window that recorded no CUDA
     kernel (a profiler dropout) is taken again, up to
     :data:`PROFILE_TRIES` windows (``windows``: how many were taken)."""
     from torch.autograd import DeviceType
@@ -436,6 +437,7 @@ def profile_steps(step, steps: int, warmup: int) -> dict:
                 step(i)
             torch.cuda.synchronize()
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
                    and not e.name.startswith(("Memcpy", "Memset"))]
         if kernels:
             break

@@ -33,6 +33,7 @@ import torch
 from .models import two_stage
 from .ops import cuda_farm_heads, cuda_farm_mac
 from .parallel import farm2
+from .utils.profiling import annotate
 
 # The JAX package's transform tiers; they count TPU matrix-unit passes
 PRECISIONS = ("highest", "high", "default", "bf16")
@@ -146,28 +147,30 @@ class ReverbFarm:
         the farm's device; with a mesh, ``V`` is this rank's
         ``len(local_voices)``.  ``T`` must be a positive multiple of
         ``period`` and at most ``max_blocks_per_call`` where that is not None
-        (split longer streams into consecutive calls)."""
-        x = torch.as_tensor(blocks, dtype=torch.float32, device=self.device)
-        t = x.shape[0]
-        v = len(self._local)
-        if x.ndim != 3 or tuple(x.shape[1:]) != (v, self.block_size):
-            raise ValueError(f"expected [T, {v}, {self.block_size}] blocks, "
-                             f"got {tuple(x.shape)}")
-        if t == 0 or t % self.period != 0:
-            raise ValueError(
-                f"T={t} must be a positive multiple of the tail period "
-                f"({self.period} blocks) — the aligned farm consumes whole tail periods")
-        if self.max_blocks_per_call is not None and t > self.max_blocks_per_call:
-            raise ValueError(
-                f"T={t} exceeds the farm's per-call ceiling of "
-                f"{self.max_blocks_per_call} blocks "
-                f"({self.max_blocks_per_call // self.period} tail periods) — split the "
-                "stream into consecutive process() calls")
-        if self.cfg.tail is None:
-            if t not in self._khat_cache:
-                self._khat_cache[t] = two_stage.small_stream_khats(self.cfg, self.state, t)
-            return farm2.farm2_stream(self.cfg, self.state, x, head_khat=self._khat_cache[t])
-        return farm2.farm2_stream(self.cfg, self.state, x, self._step, heads=self._heads)
+        (split longer streams into consecutive calls).  The call is the span
+        ``fftconv.farm.process`` in a ``torch.profiler`` trace."""
+        with annotate("fftconv.farm.process"):
+            x = torch.as_tensor(blocks, dtype=torch.float32, device=self.device)
+            t = x.shape[0]
+            v = len(self._local)
+            if x.ndim != 3 or tuple(x.shape[1:]) != (v, self.block_size):
+                raise ValueError(f"expected [T, {v}, {self.block_size}] blocks, "
+                                 f"got {tuple(x.shape)}")
+            if t == 0 or t % self.period != 0:
+                raise ValueError(
+                    f"T={t} must be a positive multiple of the tail period "
+                    f"({self.period} blocks) — the aligned farm consumes whole tail periods")
+            if self.max_blocks_per_call is not None and t > self.max_blocks_per_call:
+                raise ValueError(
+                    f"T={t} exceeds the farm's per-call ceiling of "
+                    f"{self.max_blocks_per_call} blocks "
+                    f"({self.max_blocks_per_call // self.period} tail periods) — split the "
+                    "stream into consecutive process() calls")
+            if self.cfg.tail is None:
+                if t not in self._khat_cache:
+                    self._khat_cache[t] = two_stage.small_stream_khats(self.cfg, self.state, t)
+                return farm2.farm2_stream(self.cfg, self.state, x, head_khat=self._khat_cache[t])
+            return farm2.farm2_stream(self.cfg, self.state, x, self._step, heads=self._heads)
 
     def _check_irs(self, new_irs, count: int) -> torch.Tensor:
         new_irs = torch.as_tensor(new_irs, dtype=torch.float32, device=self.device)
@@ -183,10 +186,12 @@ class ReverbFarm:
         """Batched RT-safe IR swap at a period boundary: keeps every voice's
         input history, zeroes pending tail outputs
         (``TwoStageFFTConvolver.update_extension`` semantics per voice; the
-        reference ``update`` is ``todo!()``, ``src/fft_convolver.rs:408``)."""
-        farm2.farm2_update(self.cfg, self.state,
-                           self._check_irs(new_irs, self.voices)[self._own])
-        self._khat_cache.clear()  # built from the old tables
+        reference ``update`` is ``todo!()``, ``src/fft_convolver.rs:408``).
+        The span ``fftconv.farm.update`` in a ``torch.profiler`` trace."""
+        with annotate("fftconv.farm.update"):
+            farm2.farm2_update(self.cfg, self.state,
+                               self._check_irs(new_irs, self.voices)[self._own])
+            self._khat_cache.clear()  # built from the old tables
 
     def update_voice(self, voice: int, new_ir) -> None:
         """Per-voice RT-safe IR swap (:meth:`update_voices` of one voice)."""
@@ -199,26 +204,29 @@ class ReverbFarm:
         continue bit-identically.
         All ``V`` voices at once take :meth:`update`.  With a mesh,
         ``voice_idx`` are global indices and this rank applies those of
-        :attr:`local_voices`."""
-        idx = np.asarray(voice_idx, np.int64).reshape(-1)
-        new_irs = self._check_irs(new_irs, idx.size)
-        if idx.size == 0:
-            return
-        if len(np.unique(idx)) != idx.size:
-            raise ValueError("voice_idx must be distinct")
-        if idx.min() < 0 or idx.max() >= self.voices:
-            raise ValueError(f"voice_idx out of range [0, {self.voices})")
-        if idx.size == self.voices:
-            full = torch.empty_like(new_irs)
-            full[torch.from_numpy(idx).to(self.device)] = new_irs
-            self.update(full)
-            return
-        own = (idx >= self._local.start) & (idx < self._local.stop)
-        if not own.any():
-            return
-        idx, new_irs = idx[own] - self._local.start, new_irs[torch.from_numpy(own).to(self.device)]
-        farm2.farm2_update_voices(self.cfg, self.state, idx, new_irs)
-        self._khat_cache.clear()  # the short-IR farm's, rebuilt whole at the next call
+        :attr:`local_voices`.  The span ``fftconv.farm.update`` in a
+        ``torch.profiler`` trace."""
+        with annotate("fftconv.farm.update"):
+            idx = np.asarray(voice_idx, np.int64).reshape(-1)
+            new_irs = self._check_irs(new_irs, idx.size)
+            if idx.size == 0:
+                return
+            if len(np.unique(idx)) != idx.size:
+                raise ValueError("voice_idx must be distinct")
+            if idx.min() < 0 or idx.max() >= self.voices:
+                raise ValueError(f"voice_idx out of range [0, {self.voices})")
+            if idx.size == self.voices:
+                full = torch.empty_like(new_irs)
+                full[torch.from_numpy(idx).to(self.device)] = new_irs
+                self.update(full)
+                return
+            own = (idx >= self._local.start) & (idx < self._local.stop)
+            if not own.any():
+                return
+            idx = idx[own] - self._local.start
+            new_irs = new_irs[torch.from_numpy(own).to(self.device)]
+            farm2.farm2_update_voices(self.cfg, self.state, idx, new_irs)
+            self._khat_cache.clear()  # the short-IR farm's, rebuilt whole at the next call
 
     def reset(self) -> None:
         """Clear all input state; keep the IR tables (``FFTConvolver::reset``

@@ -19,7 +19,9 @@ card): voices updated right before this call get no tail0 contribution in
 their first period.  :func:`suppress_rows` computes the masked remainder
 ``w [V, n, B+1]`` in torch from the ring before the call writes it; it is
 subtracted from the first ``n`` rows of the block-axis convolution, before
-the inverse and the overlap-add.  ``delay``: optional ``(precalc [V, n B],
+the inverse and the overlap-add.  The pass runs only when a voice is
+flagged, and is then the span ``fftconv.farm.suppress`` in a
+``torch.profiler`` trace.  ``delay``: optional ``(precalc [V, n B],
 output [V, n B], rows [q, V, n B])``, the big tail's pending precalc (added
 in period 0), its pending output (period 1) and this call's tail rows (row
 ``j - 2`` in period ``j``), so the farm's delay line costs no extra pass.
@@ -49,6 +51,7 @@ import torch
 from .. import _build
 from ..models import uniform
 from ..models.two_stage import combined_head_kernel
+from ..utils.profiling import annotate
 from .cuda_engine import check_block, require
 from .fft import causal_conv_time, irdft_block, rdft_block, twiddles
 
@@ -103,14 +106,12 @@ def heads_plan(n: int, b: int, t: int) -> HeadsPlan:
 
 
 def suppress_rows(st_h: uniform.UniformState, st_t0: uniform.UniformState,
-                  suppress: torch.Tensor) -> torch.Tensor | None:
+                  suppress: torch.Tensor) -> torch.Tensor:
     """tail0's first-period remainder for the voices flagged in ``suppress``
     (their update zeroed ``hist``; this removes the ring-sourced rest): a
     small causal convolution of tail0's table with the ring, ``[V, n, B+1]``,
-    zero for unflagged voices; None when no voice is flagged.  Read the ring
-    before a call rewrites it."""
-    if not bool(suppress.any()):
-        return None
+    zero for unflagged voices.  The callers run it only when a voice is
+    flagged.  Read the ring before a call rewrites it."""
     n = st_h.segments.shape[-2]
     ring = uniform.ring_window(st_h.segments, st_h.current)
     ext_w = torch.cat([torch.zeros_like(ring[:, 1:]), ring], dim=1)  # [V, 2n-1, B+1]
@@ -158,7 +159,10 @@ def heads_step_plain(st_h: uniform.UniformState, st_t0: uniform.UniformState,
     against the combined table, or against its meta-spectra ``khat``."""
     n, b = st_h.segments.shape[-2], st_h.overlap.shape[-1]
     t = blocks.shape[0]
-    w = suppress_rows(st_h, st_t0, suppress)
+    w = None
+    if bool(suppress.any()):
+        with annotate("fftconv.farm.suppress"):
+            w = suppress_rows(st_h, st_t0, suppress)
     specs = rdft_block(blocks.transpose(0, 1), 2 * b)                # [V, T, B+1]
     ring = uniform.ring_window(st_h.segments, st_h.current)          # blocks -n..-1
     ext = torch.cat([hist, ring, specs], dim=1)                      # [V, 2n-1+T, B+1]
@@ -213,8 +217,10 @@ def heads_step(st_h: uniform.UniformState, st_t0: uniform.UniformState,
                                        ((v, n * b), (v, n * b), (t // n, v, n * b))):
             require(tensor, f"delay {name}", shape, torch.float32, dev)
         ptrs = [d.data_ptr() for d in delay]
-    w = suppress_rows(st_h, st_t0, suppress)  # from the ring before the kernel writes it
-    w = None if w is None else w.mT.contiguous()  # bins-major [V, B+1, n]
+    w = None
+    if bool(suppress.any()):  # from the ring before the kernel writes it
+        with annotate("fftconv.farm.suppress"):
+            w = suppress_rows(st_h, st_t0, suppress).mT.contiguous()  # bins-major [V, B+1, n]
     scratch = torch.empty((2, v, nb, t), dtype=c64, device=dev)
     y = torch.empty((t, v, b), device=dev)
     overlap = torch.empty((v, b), device=dev)

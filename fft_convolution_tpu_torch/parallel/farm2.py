@@ -60,6 +60,7 @@ from ..models.two_stage import (TwoStageConfig, TwoStageState, combined_head_ker
 from ..ops import cuda_farm_heads, cuda_farm_mac
 from ..ops.cuda_engine import to_bf16
 from ..ops.fft import causal_conv_khat, irdft_block, next_power_of_two, rdft_block
+from ..utils.profiling import annotate
 from . import farm
 
 TAIL_DTYPES = (torch.float32, torch.bfloat16)
@@ -322,8 +323,9 @@ def farm2_update(cfg: TwoStageConfig, state: Farm2State, new_irs) -> None:
         for k in _PENDING:
             getattr(state, k).zero_()
         return
-    _write_tail_table(cfg, state.tail.table, new_irs,
-                      torch.arange(new_irs.shape[0], device=new_irs.device))
+    with annotate("fftconv.farm.update.table"):
+        _write_tail_table(cfg, state.tail.table, new_irs,
+                          torch.arange(new_irs.shape[0], device=new_irs.device))
     state.tail.overlap.zero_()
     state.tail.pre.zero_()
     for buf in (state.hist, state.tail_output, state.tail_precalc):
@@ -351,7 +353,8 @@ def farm2_update_voices(cfg: TwoStageConfig, state: Farm2State, voice_idx,
         for k in _PENDING:
             getattr(state, k)[idx] = 0.0
         return
-    _write_tail_table(cfg, state.tail.table, new_irs, idx)
+    with annotate("fftconv.farm.update.table"):
+        _write_tail_table(cfg, state.tail.table, new_irs, idx)
     for buf in (state.tail.pre, state.tail.overlap, state.hist, state.tail_output,
                 state.tail_precalc):
         buf[idx] = 0.0
@@ -361,22 +364,30 @@ def farm2_update_voices(cfg: TwoStageConfig, state: Farm2State, voice_idx,
 def _tail_corr_phased_fused(cfg: uniform.UniformConfig, tail: TailState,
                             blocks_rows: torch.Tensor, step: Callable) -> torch.Tensor:
     """The big tail for ``blocks_rows [T, V, tb]`` (one tail block per
-    period): forward rDFT, the phased step ``step`` (kernel B5 or its plain
-    version), inverse rDFT and overlap-add — ``_tail_corr_phased_fused``
-    (``fft_convolution_tpu/parallel/farm2.py:666``).  Returns ``[T, V, tb]``."""
+    period; or the ``[T, V, p, B]`` view of the head blocks, copied into
+    rows here): forward rDFT, the phased step ``step`` (kernel B5 or its
+    plain version), inverse rDFT and overlap-add —
+    ``_tail_corr_phased_fused`` (``fft_convolution_tpu/parallel/farm2.py:666``).
+    Returns ``[T, V, tb]``.  The stages around the step are the spans
+    ``fftconv.farm.tail_fwd`` (the rows and their rDFT) and
+    ``fftconv.farm.tail_inv`` (the inverse, the overlap-add and its carry)."""
     tb, n = cfg.block_size, cfg.seg_count
-    t = blocks_rows.shape[0]
+    t, v = blocks_rows.shape[:2]
     if t > min(n, cuda_farm_mac.MAX_BLOCKS):
         raise ValueError(f"the phased core takes at most min(N={n}, "
                          f"{cuda_farm_mac.MAX_BLOCKS}) blocks per call, got {t}")
-    specs = rdft_block(blocks_rows, cfg.fft_size).contiguous()  # [T, V, tb+1]
-    del blocks_rows  # each transient goes as soon as it is dead: the farm's peak
+    with annotate("fftconv.farm.tail_fwd"):
+        rows = blocks_rows.reshape(t, v, tb)
+        del blocks_rows
+        specs = rdft_block(rows, cfg.fft_size).contiguous()  # [T, V, tb+1]
+    del rows  # each transient goes as soon as it is dead: the farm's peak
     convs, tail.pre = step(tail.ring, tail.table, specs, tail.q)
     del specs
-    outs = irdft_block(convs, cfg.fft_size)                # [T, V, 2tb]
-    del convs
-    y = outs[:, :, :tb] + torch.cat([tail.overlap[None], outs[:-1, :, tb:]])
-    tail.overlap = outs[-1, :, tb:].contiguous()
+    with annotate("fftconv.farm.tail_inv"):
+        outs = irdft_block(convs, cfg.fft_size)                # [T, V, 2tb]
+        del convs
+        y = outs[:, :, :tb] + torch.cat([tail.overlap[None], outs[:-1, :, tb:]])
+        tail.overlap = outs[-1, :, tb:].contiguous()
     tail.q = (tail.q + t) % n
     return y
 
@@ -422,7 +433,7 @@ def farm2_stream(cfg: TwoStageConfig, state: Farm2State | TwoStageState,
     with its own small-stream core
     (``fft_convolution_tpu/parallel/farm2.py:1075``), so the fused front
     end never runs here."""
-    b, tb, p = cfg.head_block, cfg.tail_block, cfg.period
+    b, p = cfg.head_block, cfg.period
     t, v = blocks.shape[:2]
     q = t // p
     if q * p != t or q == 0:
@@ -433,8 +444,9 @@ def farm2_stream(cfg: TwoStageConfig, state: Farm2State | TwoStageState,
     if head_khat is not None:
         raise ValueError("head_khat is the short-IR farm's; bind farm2_head_khat into "
                          "heads=functools.partial(heads_step_plain, khat=...)")
-    out_t = _tail_corr_phased_fused(
-        cfg.tail, state.tail, blocks.reshape(q, p, v, b).transpose(1, 2).reshape(q, v, tb), step)
+    # the tail's rows, one tail block a period, are copied from this view inside
+    out_t = _tail_corr_phased_fused(cfg.tail, state.tail,
+                                    blocks.reshape(q, p, v, b).transpose(1, 2), step)
     # the two-period delay line: the pending precalc into period 0, the
     # pending output into period 1, this call's early big-tail outputs after
     y = heads(state.head, state.tail0, blocks, state.hist, state.suppress,

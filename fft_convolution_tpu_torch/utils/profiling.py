@@ -6,8 +6,10 @@ example (``examples/compare_partitioned.rs:28,36-53``).  Here:
 
 * :func:`trace` — context manager around ``torch.profiler`` that writes a
   Chrome trace of the region (open it in Perfetto or ``chrome://tracing``);
-* :func:`annotate` — a named span (``torch.profiler.record_function``) that
-  shows up inside the trace;
+* :func:`annotate` — the port's one span primitive: a named span
+  (``torch.profiler.record_function``) that shows up inside the trace, nested
+  under the span open around it, and costs one flag check when no profiler
+  runs;
 * :class:`LatencyRecorder` — streaming per-block latency percentiles for
   real-time serving dashboards (p50/p95/p99 + xRT).
 """
@@ -42,8 +44,18 @@ def trace(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
 
 
+_NO_SPAN = contextlib.nullcontext()  # reusable: it holds no state
+
+
 def annotate(name: str):
-    """Named span annotation visible inside traces."""
+    """A named span, ``with annotate("fftconv.farm.process"): ...``.  Under
+    ``torch.profiler`` it is ``record_function(name)``: a host event on the
+    profiler's clock, the same clock as the card's kernels, so a kernel is
+    put down to the span around its launch.  With no profiler running it
+    creates no ``RecordFunction`` and returns one shared null context, after
+    one flag check, so spans may sit on the hot path."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
     return torch.profiler.record_function(name)
 
 

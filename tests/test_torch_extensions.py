@@ -1,11 +1,13 @@
 """The port's checkpoint, timing and profiling utilities on the CPU (ports
-the checkpoint and latency-recorder tests of tests/test_extensions.py).
+the checkpoint and latency-recorder tests of tests/test_extensions.py), and
+the reverb farm's ``fftconv.farm.*`` spans under ``torch.profiler``.
 
 A checkpoint round trip is exact: the engine restored from the file goes on
 bit for bit as the one that was saved, for every snapshot form of the port
 (dataclass states, tuples, dicts, the crossfader's NamedTuple, bf16
 storage)."""
 
+import contextlib
 import json
 import os
 
@@ -18,7 +20,7 @@ from fft_convolution_tpu_torch import (CrossfadeConvolver, CudaCrossfadeConvolve
                                        CudaTwoStageConvolver, FFTConvolver, ReverbFarm,
                                        TwoStageFFTConvolver)
 from fft_convolution_tpu_torch.ops import cuda_engine
-from fft_convolution_tpu_torch.utils import checkpoint
+from fft_convolution_tpu_torch.utils import checkpoint, profiling
 from fft_convolution_tpu_torch.utils.profiling import TRACE_FILE, LatencyRecorder, annotate, trace
 from fft_convolution_tpu_torch.utils.timing import BlockTiming, time_per_block, time_stream
 
@@ -188,3 +190,118 @@ def test_profiling_trace(tmp_path):
     assert os.path.exists(path)
     events = json.loads(path.read_text())["traceEvents"]
     assert any(e.get("name") == "reverb_block" for e in events)
+
+
+# ---- the farm's spans ----------------------------------------------------------------
+
+FARM_SPANS = ("fftconv.farm.process", "fftconv.farm.tail_fwd", "fftconv.farm.tail_inv",
+              "fftconv.farm.suppress", "fftconv.farm.update", "fftconv.farm.update.table")
+
+
+def test_annotate_without_a_profiler_is_one_null_context(monkeypatch):
+    """With no profiler running, ``annotate`` makes no ``RecordFunction``: it
+    hands back the same null context every time; under one it is
+    ``record_function``."""
+    made = []
+    real = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: made.append(name) or real(name))
+    spans = [profiling.annotate(name) for name in FARM_SPANS]
+    assert all(s is spans[0] for s in spans) and isinstance(spans[0], contextlib.nullcontext)
+    assert made == []
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert isinstance(profiling.annotate("fftconv.farm.process"), real)
+    assert made == ["fftconv.farm.process"]
+    assert profiling.annotate("fftconv.farm.process") is spans[0]
+
+
+def _farm_spans(tmp_path, calls):
+    """Run ``calls`` (each a function of the farm) on a tiny CPU farm built
+    inside a ``torch.profiler`` window; the ``fftconv.*`` spans as ``(start,
+    end, name)`` sorted by start, and each call's ``(start, end)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    irs = _irs(21, 3)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        farm = ReverbFarm(irs, B, IR_LEN, device="cpu")
+        marks = []
+        for i, call in enumerate(calls):
+            with torch.profiler.record_function(f"test.call{i}"):
+                call(farm)
+    path = tmp_path / "farm_trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                   if e["name"].startswith("fftconv."))
+    for i in range(len(calls)):
+        (mark,) = [(e["ts"], e["ts"] + e["dur"]) for e in events if e["name"] == f"test.call{i}"]
+        marks.append(mark)
+    return spans, marks
+
+
+def _inside(span, outer):
+    return outer[0] <= span[0] and span[1] <= outer[1]
+
+
+def test_farm_spans_nest_under_their_calls(tmp_path):
+    """The six spans of the farm: each ``process`` holds one
+    ``fftconv.farm.process`` with the tail's forward stage (its rows and
+    their rDFT) and its inverse inside; ``update_voices`` and ``update`` hold
+    ``fftconv.farm.update`` with the table's stage inside; construction opens
+    none; the suppress pass opens its span only in the call after an
+    update, inside that call's process span."""
+    rng = np.random.default_rng(22)
+    x = [torch.from_numpy(rng.standard_normal((32, 3, B)).astype(np.float32)) for _ in range(4)]
+    new = _irs(23, 3)
+    calls = [lambda f: f.process(x[0]),
+             lambda f: f.update_voices([1], new[1:2]),
+             lambda f: f.process(x[1]),
+             lambda f: f.process(x[2]),
+             lambda f: f.update(new),
+             lambda f: f.process(x[3])]
+    spans, marks = _farm_spans(tmp_path, calls)
+    assert {name for _, _, name in spans} == set(FARM_SPANS)
+    assert all(any(_inside(s, m) for m in marks) for s in spans)  # none from construction
+    for i, m in enumerate(marks):
+        mine = [s for s in spans if _inside(s, m)]
+        names = sorted(name for _, _, name in mine)
+        if i in (1, 4):
+            assert names == ["fftconv.farm.update", "fftconv.farm.update.table"], i
+            outer = next(s for s in mine if s[2] == "fftconv.farm.update")
+        else:
+            want = ["fftconv.farm.process", "fftconv.farm.tail_fwd", "fftconv.farm.tail_inv"]
+            if i in (2, 5):  # the first call after an update
+                want.insert(1, "fftconv.farm.suppress")
+            assert names == want, i
+            outer = next(s for s in mine if s[2] == "fftconv.farm.process")
+        assert all(_inside(s, outer) for s in mine)
+
+
+def test_farm_output_is_the_same_traced_or_not(monkeypatch):
+    """The spans change nothing the farm computes: the same calls with and
+    without a profiler give the same bits, and without one no
+    ``RecordFunction`` is made."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(24)
+    x = [torch.from_numpy(rng.standard_normal((32, 3, B)).astype(np.float32)) for _ in range(3)]
+    new = _irs(25, 1)
+
+    def run(farm):
+        ys = [farm.process(x[0])]
+        farm.update_voices([2], new)
+        return ys + [farm.process(xi) for xi in x[1:]]
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        traced = run(ReverbFarm(_irs(21, 3), B, IR_LEN, device="cpu"))
+    made = []
+    real = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: made.append(name) or real(name))
+    plain = run(ReverbFarm(_irs(21, 3), B, IR_LEN, device="cpu"))
+    assert made == []
+    for a, b in zip(traced, plain):
+        assert torch.equal(a, b)
