@@ -45,13 +45,13 @@ printed with the card's name and power limit and gated <= 1 (a share above
 9. latency of B3 and B1p per block and of B4 and B4p per 64-block call
    (and per block: a call over 64), kernel path against plain path
    (recorded, not gated);
-10. ``ReverbFarm`` (kernels B5 and B6, f32 tail) at the JAX farm's benchmark shape:
+10. ``ReverbFarm`` (kernels B5, B6 and B7, f32 tail) at the JAX farm's benchmark shape:
     128 voices of random 60 s 48 kHz IRs (scale 0.002, seeded on the card),
     block 128 — tail block 32768, period 256, head and tail0 256 segments,
     big tail 88 segments (checked).  Calls of 8 periods until the tail phase
-    has wrapped (11), then of 2, 1, 4 and 3 periods: one B5 and one B6
-    launch per call, kernel path against the plain path (both kernels'
-    plain versions) over all voices (1e-4), the head path's exit state
+    has wrapped (11), then of 2, 1, 4 and 3 periods: one B5, one B6 and
+    one of each B7 launch per call, kernel path against the plain path (the
+    three kernels' plain versions) over all voices (1e-4), the head path's exit state
     against the plain path's (1e-4 a field), and two voices against
     ``scipy.signal.fftconvolve`` in float64 over the whole stream (1e-4);
 11. at a period boundary ``update`` (new IRs for every voice), then
@@ -59,8 +59,10 @@ printed with the card's name and power limit and gated <= 1 (a share above
     first): kernel against plain path (1e-4, output and the head path's exit
     state), and the untouched voices bit-identical to a clone that skipped
     ``update_voices``;
-12. the same farm with ``tail_dtype=torch.bfloat16`` (B5's bf16 form, B6)
-    over the stream of phase 10: against its plain path (1e-4) and against
+12. the same farm with ``tail_dtype=torch.bfloat16`` (B5's bf16 form, B6, B7)
+    over the stream of phase 10: against its plain path, B5's and B6's plain
+    versions over B7's spectra (1e-4; two FFTs' spectra round to
+    neighbouring bf16 values in the ring), and against
     the f32 farm (5e-3 of the output scale);
 13. latency of 2- and 8-period farm calls, both storages, kernel path
     against plain path, with real-time voices (voices x audio seconds /
@@ -78,7 +80,8 @@ printed with the card's name and power limit and gated <= 1 (a share above
     ``roofline.farm_heads_cost`` (gated); the 8-period farm call in the
     kernel form and in the parent's form (``farm2_stream`` with the plain
     head path over cached meta-spectra and B5), f32 and bf16 tails: events
-    in turns, device microseconds split into B6, B5 and the rest, and the
+    in turns, device microseconds split into B6, B5, B7 and the rest (B7's
+    beside its bound, ``roofline.farm_tail_dft_cost``), and the
     peak memory of one call (the state held plus
     ``torch.cuda.max_memory_allocated`` over the call) beside
     ``farm2_bytes_per_voice`` x 128, gated within 2 % for the kernel form;
@@ -94,7 +97,13 @@ printed with the card's name and power limit and gated <= 1 (a share above
     once each) for B4 and B4p; each kernel's share of its bound in device
     time (``roofline.stream_conv_cost`` for B1, B1p, B4, B4p,
     ``two_stage_step_cost`` for B2, ``crossfade_stream_cost`` for B3;
-    gated);
+    gated); then kernel B7 alone at the farm's tail block
+    (:func:`farm_tail_transforms`: 128 voices x 8 tail rows, each launch
+    against its plain version, the gather and cuFFT, to 1e-5 of each
+    output's peak, then a profile of each form: one CUDA kernel a B7
+    launch, device microseconds and shares of
+    ``roofline.farm_tail_dft_cost``, gated) and a ``{"farm_tail_transforms":
+    ...}`` line;
 15. the batched streams (``torch.fft`` on the card; no hand-written kernel
     lies on them, so every launch counter must stay 0) at the JAX package's
     benchmark shapes, uncut: the flagship ``TwoStageFFTConvolver`` (block
@@ -194,7 +203,9 @@ module's) and its ``share`` of the device time (B5: of the step alone;
 ``library_ms`` (null: no single PyTorch call computes a step), B5's and
 B5p's ``dp_mesh`` (phase 17: ranks, launches a rank, error, call ms a
 rank), B6's head path alone (phase 13: ``ms`` B6, ``plain_ms`` the plain
-version over cached meta-spectra, its profile and share), and for B1-B4
+version over cached meta-spectra, its profile and share), B7's two
+launches (phase 14: ``device_us`` and ``share`` beside ``plain_device_us``
+and ``plain_share``, the plain forms on cuFFT), and for B1-B4
 the profile's ``device_us``, ``device_us_by_kernel`` and
 ``cuda_launches_per_step`` (1 for B1, B1p, B2 and B3, 3 for B4 and B4p,
 gated).
@@ -212,6 +223,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -240,6 +252,9 @@ MODEL_TOL = 0.02                          # farm2_bytes_per_voice against the me
 GUARD_SEED = 15                           # the input of the guard-shape farm call (phase 13)
 PROFILE_STEPS, PROFILE_WARMUP = 256, 64   # per-block kernels (phase 14)
 PROFILE_CALLS, PROFILE_CALL_WARMUP = 24, 4  # B4 calls
+B7_PERIODS, B7_SEED = 8, 14               # B7 alone: tail rows a launch, its inputs (phase 14)
+B7_PROFILED, B7_WARMUP = 12, 3            # B7 launches
+B7_TOL = 1e-5                             # B7 against its plain version, of each output's peak
 # phase 15: the JAX benchmarks' stream shapes (bench.py:163-178,
 # benchmarks/configs.py:92-258) and the values they must resolve to
 FLAGSHIP_PERIODS, CONFIG3_PERIODS = 62, 32  # 62 x 64 = T_BLOCKS
@@ -338,15 +353,18 @@ class Counts:
 
 
 def kernel_counts() -> Counts:
-    """Every kernel wrapper of the port, B1 to B6."""
+    """Every kernel wrapper of the port, B1 to B7 (B7f and B7i: B7's forward
+    and inverse launches)."""
     from fft_convolution_tpu_torch.ops import (cuda_crossfade, cuda_engine, cuda_farm_heads,
-                                               cuda_farm_mac, cuda_stream, cuda_two_stage)
+                                               cuda_farm_mac, cuda_farm_tail, cuda_stream,
+                                               cuda_two_stage)
 
     return Counts(B1=cuda_engine.block_step, B1p=cuda_engine.block_step_packed,
                   B2=cuda_two_stage.block_step, B3=cuda_crossfade.block_step,
                   B4=cuda_stream.stream, B4p=cuda_stream.stream_packed,
                   B5=cuda_farm_mac.phased_step, B5p=cuda_farm_mac.phased_step_packed,
-                  B6=cuda_farm_heads.heads_step)
+                  B6=cuda_farm_heads.heads_step, B7f=cuda_farm_tail.tail_forward,
+                  B7i=cuda_farm_tail.tail_inverse)
 
 
 def core_calls(since: tuple | None = None) -> tuple:
@@ -1173,21 +1191,24 @@ def host_runtime(dev, counts: Counts, ir: np.ndarray, ir_b: np.ndarray, x_host: 
                         lambda: reverb_farm.main(["--device", "cuda", "--voices",
                                                   str(EXAMPLE_VOICES), "--ir-seconds",
                                                   str(EXAMPLE_IR_SECONDS)]),
-                        {"B5": 2, "B6": 2})
+                        {"B5": 2, "B6": 2, "B7f": 2, "B7i": 2})
     record["examples"] = {"serve_morph": {key: morph[key] for key in ("pre_err", "post_err",
                                                                       "update_applied_at")},
                           "reverb_farm": {"err": farm["err"], "wall_s": farm["wall_s"]}}
     return record
 
 
-def plain_farm(farm):
+def plain_farm(farm, transforms: bool = True):
     """A clone of ``farm`` whose big tail and head path run the plain
-    versions of kernels B5 and B6 on the card."""
-    from fft_convolution_tpu_torch.ops import cuda_farm_heads, cuda_farm_mac
+    versions of kernels B5 and B6 on the card, and with ``transforms`` the
+    big tail's transforms the plain versions of B7's."""
+    from fft_convolution_tpu_torch.ops import cuda_farm_heads, cuda_farm_mac, cuda_farm_tail
 
     twin = farm.clone()
     twin._step = cuda_farm_mac.phased_step_plain
     twin._heads = cuda_farm_heads.heads_step_plain
+    if transforms:
+        twin._tail_dft = (cuda_farm_tail.tail_forward_plain, cuda_farm_tail.tail_inverse_plain)
     return twin
 
 
@@ -1235,11 +1256,11 @@ def peak_bytes(run) -> int:
 
 def by_kind(by_name: dict) -> dict:
     """A profile's device microseconds split into kernel B6's three kernels,
-    kernel B5's and everything else (cuFFT, torch's elementwise and copy
-    kernels)."""
-    out = {"B6": 0.0, "B5": 0.0, "other": 0.0}
+    kernel B5's, kernel B7's two and everything else (cuFFT, torch's
+    elementwise and copy kernels)."""
+    out = {"B6": 0.0, "B5": 0.0, "B7": 0.0, "other": 0.0}
     for name, us in by_name.items():
-        out["B6" if "b6_" in name else "B5" if "b5_" in name else "other"] += us
+        out[next((k for k in ("B6", "B5", "B7") if f"{k.lower()}_" in name), "other")] += us
     return out
 
 
@@ -1373,6 +1394,9 @@ def farm_head_path(dev, farm_irs: torch.Tensor, gen: torch.Generator, crd: Card)
                   f"{held / 1e9!r} GB and the call's transients; the model "
                   f"farm2_bytes_per_voice x {FARM_VOICES}: {model / 1e9!r} GB, "
                   f"measured / model {peak / model!r}) ({crd.smi})", flush=True)
+        out["b7_bound"] = shares(f"farm {tag} {HEAD_PERIODS}-period call: B7's two launches",
+                                 rl.farm_tail_dft_cost(fc.cfg, FARM_VOICES, t), crd,
+                                 device=out["kernel"]["by_kind"]["B7"] / 1e6)
         out["call_bound"] = shares(f"farm {tag} {HEAD_PERIODS}-period call (kernel form, "
                                    "this phase)", rl.farm_cost(fc.cfg, FARM_VOICES, t, item),
                                    crd, device=out["kernel"]["device_us"] / 1e6,
@@ -1401,6 +1425,65 @@ def farm_head_path(dev, farm_irs: torch.Tensor, gen: torch.Generator, crd: Card)
         rec[tag] = out
         del fc, kh, forms, xg
         torch.cuda.empty_cache()
+    return rec
+
+
+def farm_tail_transforms(dev, crd: Card, voices: int, periods: int) -> dict:
+    """Kernel B7 alone at the farm's tail block (phase 14): ``periods`` tail
+    rows of ``voices`` voices, each launch against its plain version (the
+    rows' gather and cuFFT's r2c; c2r, the overlap-add and the carry on
+    torch: the parent's form, and the yardstick), the spectra, ``y`` and the
+    overlap gated to :data:`B7_TOL` of each one's peak; then a
+    ``torch.profiler`` window of each form: device microseconds by CUDA
+    kernel, B7 gated to one kernel a launch, and each form's share of its
+    launch's bound (``roofline.farm_tail_dft_cost``, gated).  Returns a
+    record."""
+    from fft_convolution_tpu_torch.ops import cuda_farm_tail as ft
+
+    rl = roofline()
+    tb, p = FARM_SHAPES[:2]
+    cfg = types.SimpleNamespace(period=p, tail_block=tb)  # all the cost reads
+    gen = torch.Generator(device=dev).manual_seed(B7_SEED)
+    x = torch.randn((periods * p, voices, BLOCK), generator=gen, device=dev)
+    convs = torch.randn((periods, voices, tb + 1), dtype=torch.complex64, generator=gen,
+                        device=dev)
+    # real at DC and Nyquist, as B5's sums of real rows' spectra are: cuFFT's
+    # c2r, the plain version here, reads those imaginary parts at some lengths
+    torch.view_as_real(convs)[:, :, [0, -1], 1] = 0.0
+    overlap = torch.randn((voices, tb), generator=gen, device=dev)
+    ov_k, ov_p = overlap.clone(), overlap.clone()
+    got = {"specs": ft.tail_forward(x, tb), "y": ft.tail_inverse(convs, ov_k), "overlap": ov_k}
+    want = {"specs": ft.tail_forward_plain(x, tb), "y": ft.tail_inverse_plain(convs, ov_p),
+            "overlap": ov_p}
+    torch.cuda.synchronize()
+    rec = {"voices": voices, "periods": periods, "tail_block": tb, "err": {}}
+    for k in got:
+        rec["err"][k] = max_abs(got[k], want[k]) / float(want[k].abs().max())
+        gate(f"B7 {k} vs plain, {voices} voices x {periods} rows (of the peak)",
+             rec["err"][k], B7_TOL)
+    del got, want, ov_k, ov_p
+    forms = {"forward": (lambda i: ft.tail_forward(x, tb), lambda i: ft.tail_forward_plain(x, tb)),
+             "inverse": (lambda i: ft.tail_inverse(convs, overlap),
+                         lambda i: ft.tail_inverse_plain(convs, overlap))}
+    for part, (kernel, plain) in forms.items():
+        cost = rl.farm_tail_dft_cost(cfg, voices, periods * p, forward=part == "forward",
+                                     inverse=part == "inverse")
+        out = {}
+        for kind, fn in (("kernel", kernel), ("plain", plain)):
+            prof = profile_steps(fn, B7_PROFILED, B7_WARMUP)
+            out[kind] = {"device_us": prof["device_us"], "by_name": prof["by_name"],
+                         "cuda_kernels": prof["cuda_launches_per_step"],
+                         "bound": shares(f"B7 {part} ({kind}), {voices} voices x {periods} rows",
+                                         cost, crd, device=prof["device_us"] / 1e6)}
+            print(f"B7 {part}, {kind}: {prof['device_us']!r} device us a launch in "
+                  f"{prof['cuda_launches_per_step']!r} CUDA kernels ({prof['by_name']!r})",
+                  flush=True)
+        names = list(out["kernel"]["by_name"])
+        if len(names) != 1 or "b7_tail_" not in names[0] \
+                or round(out["kernel"]["cuda_kernels"]) != 1:
+            fail(f"B7 {part}: {out['kernel']['cuda_kernels']!r} CUDA kernels a launch "
+                 f"({names}), not one of B7's")
+        rec[part] = out
     return rec
 
 
@@ -1568,10 +1651,10 @@ def mesh_phase(dev, ir: np.ndarray, ir_b: np.ndarray, x_host: np.ndarray,
             lo, hi = r["voices"]
             print(f"rank {rank} {tag} farm, voices {lo}-{hi - 1} launches: {r['launches']}",
                   flush=True)
-            if r["launches"] != {k: (DP_CALLS if k in (tag, "B6") else 0)
+            if r["launches"] != {k: (DP_CALLS if k in (tag, "B6", "B7f", "B7i") else 0)
                                  for k in r["launches"]}:
                 fail(f"rank {rank}: {tag} farm launch counts {r['launches']}, not one "
-                     f"{tag} and one B6 a call")
+                     f"{tag}, one B6 and one of each B7 launch a call")
             y, want = r["y"].to(dev), dp_ref[tag][:, :, lo:hi]
             err = max_abs(y, want)
             bit_equal = bool(torch.equal(y, want))
@@ -1861,7 +1944,8 @@ def main() -> None:
         return torch.cat([f.process(xc) for xc in xs_])
 
     y_farm = counts.drive("B5/B6 f32 path", lambda: run_calls(farm, calls),
-                          {"B5": len(calls), "B6": len(calls)})
+                          {"B5": len(calls), "B6": len(calls), "B7f": len(calls),
+                           "B7i": len(calls)})
     if farm.state.tail.q != sum(FARM_PERIODS) % cfg.tail.seg_count:
         fail(f"tail phase {farm.state.tail.q} after {sum(FARM_PERIODS)} periods")
     b5_err = max_abs(y_farm, run_calls(farm_plain, calls))
@@ -1891,7 +1975,8 @@ def main() -> None:
     for f in (farm, farm_plain):
         f.update_voices(FARM_UPDATED, new3)
     y11 = counts.drive("B5/B6 f32 path after updates", lambda: run_calls(farm, x11),
-                       {"B5": len(x11), "B6": len(x11)})
+                       {"B5": len(x11), "B6": len(x11), "B7f": len(x11),
+                        "B7i": len(x11)})
     b5_upd_err = max_abs(y11, run_calls(farm_plain, x11))
     gate("B5/B6 f32 kernels vs plain after update + update_voices (B6's suppress pass)",
          b5_upd_err, PARITY_TOL)
@@ -1904,6 +1989,7 @@ def main() -> None:
     print(f"update_voices: {len(keep)} untouched voices bit-identical", flush=True)
     launches["B5"] = len(calls) + len(x11)
     launches["B6"] = len(calls) + len(x11)
+    launches["B7f"] = launches["B7i"] = len(calls) + len(x11)
     b5_err = max(b5_err, b5_upd_err)
     del farm, farm_plain, skipped, new_irs, new3, x11, y11
     torch.cuda.empty_cache()
@@ -1912,11 +1998,18 @@ def main() -> None:
     # ---- 12. B5 bf16: the same farm, bf16 ring and table -----------------------
     farm_bf = ReverbFarm(farm_irs, BLOCK, farm_irs.shape[1], device=dev,
                          tail_dtype=torch.bfloat16)
-    farm_bf_plain = plain_farm(farm_bf)
+    # the plain B5 and B6 over B7's spectra: with bf16 storage, spectra from
+    # two FFTs round to neighbouring bf16 values in the ring and carry (the
+    # 5e-3 gate against the f32 farm covers that); B7 is held to its plain
+    # version in phases 10, 11 and 14
+    farm_bf_plain = plain_farm(farm_bf, transforms=False)
     y_bf5 = counts.drive("B5p/B6 bf16 path", lambda: run_calls(farm_bf, calls),
-                         {"B5p": len(calls), "B6": len(calls)})
+                         {"B5p": len(calls), "B6": len(calls), "B7f": len(calls),
+                          "B7i": len(calls)})
     launches["B5p"] = len(calls)
     launches["B6"] += len(calls)
+    launches["B7f"] += len(calls)
+    launches["B7i"] += len(calls)
     b5p_err = max_abs(y_bf5, run_calls(farm_bf_plain, calls))
     gate("B5 bf16 kernel vs plain (ReverbFarm, all voices)", b5p_err, PARITY_TOL)
     gate("B5 bf16 farm vs f32 farm, relative to the output scale", rel(y_bf5, y_farm),
@@ -2021,6 +2114,8 @@ def main() -> None:
         if len(prof["names"]) != want or round(prof["cuda_launches_per_step"]) != want:
             fail(f"{label}: {prof['cuda_launches_per_step']!r} CUDA kernels per step "
                  f"({prof['names']}), not {want} launches of {want} kernels")
+    tails = farm_tail_transforms(dev, crd, FARM_VOICES, B7_PERIODS)
+    print(json.dumps({"farm_tail_transforms": tails}), flush=True)
     phase_done("14 device profile")
 
     # ---- 15. batched streams at the JAX benchmarks' shapes --------------------
@@ -2103,6 +2198,24 @@ def main() -> None:
         "share": bd["share_device"],
         **{k: bd[k] for k in ("bound_ms", "bound_us", "bound_by", "l2_resident")},
         "library_ms": None})
+    for part, label in (("forward", "B7f"), ("inverse", "B7i")):
+        rec = tails[part]
+        bd = rec["kernel"]["bound"]
+        kernels.append({
+            "name": f"B7 farm big-tail {part} transform ({FARM_VOICES} voices x {B7_PERIODS} "
+                    f"tail rows of {tails['tail_block']} samples; plain_device_us: the plain "
+                    "version, the rows' gather and cuFFT, the parent's form)",
+            "route": "cuda", "source": "fft_convolution_tpu_torch/csrc/b7_farm_tail.cu",
+            "replaces": "none: jnp fft_convolution_tpu/parallel/farm2.py:666 (rdft_block, "
+                        "irdft_block around the Pallas B5)",
+            "launches": launches[label], "max_abs_err": tails["err"],
+            "device_us": rec["kernel"]["device_us"],
+            "device_us_by_kernel": rec["kernel"]["by_name"],
+            "plain_device_us": rec["plain"]["device_us"],
+            "cuda_launches_per_step": rec["kernel"]["cuda_kernels"],
+            "share": bd["share_device"], "plain_share": rec["plain"]["bound"]["share_device"],
+            **{k: bd[k] for k in ("bound_ms", "bound_us", "bound_by", "l2_resident")},
+            "library_ms": None})
     print(f"total: {time.perf_counter() - t_run:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

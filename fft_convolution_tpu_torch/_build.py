@@ -47,6 +47,10 @@ _SIGNATURES = {
     # pre_h, pre_t, w, d_pre, d_out, d_rows; voices, b, n, T, cur, cur_new,
     # meta, fwd_per, fin_per; stream
     "fdl_b6_heads": [_P] * 17 + [_I] * 9 + [_P],
+    # x, tw, specs; voices, b, tb, T; stream
+    "fdl_b7_tail_fwd": [_P] * 3 + [_I] * 4 + [_P],
+    # convs, tw, y, overlap; voices, tb, T; stream
+    "fdl_b7_tail_inv": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

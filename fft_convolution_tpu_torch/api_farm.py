@@ -5,7 +5,8 @@ V two-stage voices with distinct long IRs are batched on one device: the
 head and tail0 stages as one combined causal convolution along the block
 axis on kernel B6 (:mod:`.ops.cuda_farm_heads`, which reads the raw tables:
 no meta-spectra are cached), the big tail on kernel B5
-(:mod:`.ops.cuda_farm_mac`).  A short-IR farm (IRs of at most two
+(:mod:`.ops.cuda_farm_mac`) between the two launches of kernel B7, its
+transforms (:mod:`.ops.cuda_farm_tail`).  A short-IR farm (IRs of at most two
 tail blocks: no big tail) streams through the two-stage engine's aligned
 path over the voice axis, its stages' meta-spectra cached per call length.
 The contract mirrors the per-voice
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from .models import two_stage
-from .ops import cuda_farm_heads, cuda_farm_mac
+from .ops import cuda_farm_heads, cuda_farm_mac, cuda_farm_tail
 from .parallel import farm2
 from .utils.profiling import annotate
 
@@ -57,14 +58,17 @@ class ReverbFarm:
     tail_dtype : ``torch.float32`` (default) or ``torch.bfloat16``: bf16
         pairs for the big tail's ring and table, half the bytes kernel B5
         reads, with ~1e-3 relative error on the tail contribution.
-    tail_mac : ``"auto"`` only: kernels B5 and B6 for a farm on a CUDA
+    tail_mac : ``"auto"`` only: kernels B5, B6 and B7 for a farm on a CUDA
         device, their plain PyTorch versions on the CPU.  The big tail's
-        step is the attribute ``_step`` and the head path ``_heads``;
-        setting them to ``cuda_farm_mac.phased_step_plain`` and
-        ``cuda_farm_heads.heads_step_plain`` runs the plain versions on the
-        card.  B6 takes ``4 <= block_size <= 2048`` and at most 1024 head
-        segments (``tail_block / block_size``); a card farm with a big tail
-        of another shape raises ``ValueError`` at construction.
+        step is the attribute ``_step``, the head path ``_heads`` and the
+        big tail's transforms ``_tail_dft``; setting them to
+        ``cuda_farm_mac.phased_step_plain``,
+        ``cuda_farm_heads.heads_step_plain`` and ``(cuda_farm_tail.
+        tail_forward_plain, cuda_farm_tail.tail_inverse_plain)`` runs the
+        plain versions on the card.  B6 takes ``4 <= block_size <= 2048``
+        and at most 1024 head segments (``tail_block / block_size``), B7
+        tail blocks of 64 to 131072 samples; a card farm with a big tail of
+        another shape raises ``ValueError`` at construction.
     dft_precision, tail_dft_precision : accepted and checked for the JAX
         package's names (``"auto"``, ``"highest"``, ``"high"``,
         ``"default"``, ``"bf16"``).  Those tiers count a TPU's matrix-unit
@@ -118,6 +122,7 @@ class ReverbFarm:
         self._step = (cuda_farm_mac.phased_step_packed if tail_dtype == torch.bfloat16
                       else cuda_farm_mac.phased_step)
         self._heads = cuda_farm_heads.heads_step
+        self._tail_dft = (cuda_farm_tail.tail_forward, cuda_farm_tail.tail_inverse)
         # the short-IR farm's stage meta-spectra per call length T
         # (two_stage.small_stream_khats): input-independent between IR
         # updates.  The big-tail farm caches none: B6 reads the raw tables.
@@ -170,7 +175,8 @@ class ReverbFarm:
                 if t not in self._khat_cache:
                     self._khat_cache[t] = two_stage.small_stream_khats(self.cfg, self.state, t)
                 return farm2.farm2_stream(self.cfg, self.state, x, head_khat=self._khat_cache[t])
-            return farm2.farm2_stream(self.cfg, self.state, x, self._step, heads=self._heads)
+            return farm2.farm2_stream(self.cfg, self.state, x, self._step, heads=self._heads,
+                                      tail_dft=self._tail_dft)
 
     def _check_irs(self, new_irs, count: int) -> torch.Tensor:
         new_irs = torch.as_tensor(new_irs, dtype=torch.float32, device=self.device)

@@ -19,8 +19,10 @@ The stream is the aligned two-stage decomposition
   (:mod:`..ops.cuda_farm_mac`) with a phase scalar ``q``: the ring rows stay
   where they are and the table window moves, so a call reads the ring and
   the table once and writes T ring rows.  The tail's forward and inverse
-  transforms run on ``torch.fft`` around the kernel, as the JAX package runs
-  them around its Pallas kernel.
+  transforms around it are kernel B7 on the card (:mod:`..ops.cuda_farm_tail`:
+  the rows' gather, the zero-padded rDFT, the irDFT and the overlap-add in
+  two launches), their plain versions over ``torch.fft`` on the CPU; the
+  JAX package runs them in jnp around its Pallas kernel.
 
 The tail's segment count is padded to a multiple of 8 (live-but-silent zero
 segments, ``src/fft_convolver.rs:111-118``), so the phase modulus and the
@@ -57,9 +59,9 @@ import torch
 from ..models import two_stage, uniform
 from ..models.two_stage import (TwoStageConfig, TwoStageState, combined_head_kernel,
                                 compute_tail_block_size)
-from ..ops import cuda_farm_heads, cuda_farm_mac
+from ..ops import cuda_farm_heads, cuda_farm_mac, cuda_farm_tail
 from ..ops.cuda_engine import to_bf16
-from ..ops.fft import causal_conv_khat, irdft_block, next_power_of_two, rdft_block
+from ..ops.fft import causal_conv_khat, next_power_of_two
 from ..utils.profiling import annotate
 from . import farm
 
@@ -118,13 +120,13 @@ def farm2_bytes_per_voice(block: int, ir_len: int, t_blocks: int,
     pre and overlap, the two pending period buffers.  No meta-spectra:
     kernel B6 transforms the raw tables.  Transients of a ``t_blocks`` call
     of ``q`` tail blocks, the larger of its two phases: the big tail (run
-    first) holds its inverse transform's operands, the B5 sums, cuFFT's copy
-    of them and cuFFT's workspace (``3q x (tb+1)`` complex64: the workspace
-    taken as one more operand, as measured) and the samples (``q x 2tb``
-    f32); the head path (B6) its bins-major spectra and convolution (``2T x
-    (B+1)`` complex64), the output ``y`` (``T x B`` f32; the caller's input
-    is not counted) and the tail rows it adds (``q x tb`` f32).  B5 keeps no
-    ring-sized temporary and B6 no ``m``-sized one.  On the card the model
+    first) holds, while B5 runs, kernel B7's spectra and B5's sums (``2q x
+    (tb+1)`` complex64; B7 keeps no padded rows, and its inverse's ``y``
+    takes the spectra's place); the head path (B6) its bins-major spectra and
+    convolution (``2T x (B+1)`` complex64), the output ``y`` (``T x B`` f32;
+    the caller's input is not counted) and the tail rows it adds (``q x tb``
+    f32), the larger since B7.  B5 keeps no ring-sized temporary and B6 no
+    ``m``-sized one.  On the card the model
     is within 2 % of the measured peak (the state held plus
     ``torch.cuda.max_memory_allocated`` over an 8-period call and over a
     4096-block call, the guard's own length, of 128 voices of 60 s IRs at
@@ -147,9 +149,20 @@ def farm2_bytes_per_voice(block: int, ir_len: int, t_blocks: int,
     if n_t == 0:
         m = next_power_of_two(2 * n - 1 + t_blocks)
         return state + 5 * m * bins * 8 + q * (2 * tbins * 8 + 2 * tb * 4)
-    tail = q * (3 * tbins * 8 + 2 * tb * 4)
+    tail = 2 * q * tbins * 8
     heads = 2 * t_blocks * bins * 8 + t_blocks * block * 4 + q * tb * 4
     return state + max(tail, heads)
+
+
+def check_card_shapes(block_size: int, max_response_length: int) -> None:
+    """Raise ``ValueError`` for a farm with a big tail that the card's
+    kernels cannot run: B6's head path (:func:`..ops.cuda_farm_heads.heads_plan`)
+    and B7's tail transforms (:func:`..ops.cuda_farm_tail.tail_plan`).
+    :func:`farm2_init` calls it for a farm built on the card."""
+    tb, n_t = _tail_segments(block_size, max_response_length)
+    if n_t:
+        cuda_farm_heads.heads_plan(tb // block_size, block_size, tb // block_size)
+        cuda_farm_tail.tail_plan(tb)
 
 
 def _stage_slice(irs: torch.Tensor, lo: int, cap: int, total: int) -> torch.Tensor:
@@ -189,8 +202,10 @@ def farm2_init(irs, block_size: int, max_response_length: int,
 
     On the card a farm with a big tail runs its head path on kernel B6,
     which takes ``4 <= block_size <= 2048`` and at most 1024 head segments
-    (``tail_block / block_size``; :func:`..ops.cuda_farm_heads.heads_plan`):
-    other shapes raise ``ValueError`` here.
+    (``tail_block / block_size``; :func:`..ops.cuda_farm_heads.heads_plan`),
+    and its tail transforms on kernel B7, which takes tail blocks of 64 to
+    131072 samples (:func:`..ops.cuda_farm_tail.tail_plan`): other shapes
+    raise ``ValueError`` here (:func:`check_card_shapes`).
     """
     irs = torch.as_tensor(irs, dtype=torch.float32, device=device)
     if irs.ndim != 2:
@@ -206,8 +221,8 @@ def farm2_init(irs, block_size: int, max_response_length: int,
     if tail_dtype not in TAIL_DTYPES:
         raise ValueError(f"tail_dtype must be one of {TAIL_DTYPES}, got {tail_dtype}")
     tb, n_t = _tail_segments(block_size, max_response_length)
-    if n_t and irs.is_cuda:
-        cuda_farm_heads.heads_plan(tb // block_size, block_size, tb // block_size)
+    if irs.is_cuda:
+        check_card_shapes(block_size, max_response_length)
     if hbm_budget_bytes == "auto":
         hbm_budget_bytes = farm.device_budget(irs.device)
     if hbm_budget_bytes is not None:
@@ -362,32 +377,32 @@ def farm2_update_voices(cfg: TwoStageConfig, state: Farm2State, voice_idx,
 
 
 def _tail_corr_phased_fused(cfg: uniform.UniformConfig, tail: TailState,
-                            blocks_rows: torch.Tensor, step: Callable) -> torch.Tensor:
-    """The big tail for ``blocks_rows [T, V, tb]`` (one tail block per
-    period; or the ``[T, V, p, B]`` view of the head blocks, copied into
-    rows here): forward rDFT, the phased step ``step`` (kernel B5 or its
-    plain version), inverse rDFT and overlap-add —
-    ``_tail_corr_phased_fused`` (``fft_convolution_tpu/parallel/farm2.py:666``).
-    Returns ``[T, V, tb]``.  The stages around the step are the spans
-    ``fftconv.farm.tail_fwd`` (the rows and their rDFT) and
-    ``fftconv.farm.tail_inv`` (the inverse, the overlap-add and its carry)."""
+                            blocks: torch.Tensor, step: Callable,
+                            tail_dft: tuple = (cuda_farm_tail.tail_forward,
+                                               cuda_farm_tail.tail_inverse)) -> torch.Tensor:
+    """The big tail for ``blocks [T p, V, B]`` (``p = tb / B`` head blocks a
+    tail row; rows ``[T, V, tb]`` are the case ``B = tb``): forward rDFT of
+    the rows, the phased step ``step`` (kernel B5 or its plain version),
+    inverse rDFT and overlap-add — ``_tail_corr_phased_fused``
+    (``fft_convolution_tpu/parallel/farm2.py:666``).  ``tail_dft``: the
+    transforms' pair, kernel B7 (:func:`..ops.cuda_farm_tail.tail_forward`,
+    ``tail_inverse``, which take their plain versions for CPU tensors) or
+    the plain versions.  Returns ``[T, V, tb]``.  The stages around the step
+    are the spans ``fftconv.farm.tail_fwd`` (the rows' gather and rDFT) and
+    ``fftconv.farm.tail_inv`` (the inverse, the overlap-add and its
+    carry)."""
     tb, n = cfg.block_size, cfg.seg_count
-    t, v = blocks_rows.shape[:2]
+    forward, inverse = tail_dft
+    t = blocks.shape[0] * blocks.shape[2] // tb
     if t > min(n, cuda_farm_mac.MAX_BLOCKS):
         raise ValueError(f"the phased core takes at most min(N={n}, "
                          f"{cuda_farm_mac.MAX_BLOCKS}) blocks per call, got {t}")
     with annotate("fftconv.farm.tail_fwd"):
-        rows = blocks_rows.reshape(t, v, tb)
-        del blocks_rows
-        specs = rdft_block(rows, cfg.fft_size).contiguous()  # [T, V, tb+1]
-    del rows  # each transient goes as soon as it is dead: the farm's peak
+        specs = forward(blocks, tb)                            # [T, V, tb+1]
     convs, tail.pre = step(tail.ring, tail.table, specs, tail.q)
-    del specs
+    del specs  # each transient goes as soon as it is dead: the farm's peak
     with annotate("fftconv.farm.tail_inv"):
-        outs = irdft_block(convs, cfg.fft_size)                # [T, V, 2tb]
-        del convs
-        y = outs[:, :, :tb] + torch.cat([tail.overlap[None], outs[:-1, :, tb:]])
-        tail.overlap = outs[-1, :, tb:].contiguous()
+        y = inverse(convs, tail.overlap)                       # overlap carried in place
     tail.q = (tail.q + t) % n
     return y
 
@@ -415,7 +430,9 @@ def farm2_head_khat_voices(cfg: TwoStageConfig, state: Farm2State, t: int,
 def farm2_stream(cfg: TwoStageConfig, state: Farm2State | TwoStageState,
                  blocks: torch.Tensor, step: Callable = cuda_farm_mac.phased_step,
                  head_khat: dict | None = None,
-                 heads: Callable = cuda_farm_heads.heads_step) -> torch.Tensor:
+                 heads: Callable = cuda_farm_heads.heads_step,
+                 tail_dft: tuple = (cuda_farm_tail.tail_forward,
+                                    cuda_farm_tail.tail_inverse)) -> torch.Tensor:
     """Stream ``blocks [T, V, B] -> [T, V, B]`` (``farm2_stream``,
     ``fft_convolution_tpu/parallel/farm2.py:1040``), ``T`` a multiple of
     the period; the state advances in place.  ``step`` is the big tail's
@@ -423,8 +440,11 @@ def farm2_stream(cfg: TwoStageConfig, state: Farm2State | TwoStageState,
     ``phased_step_packed`` for bf16 storage, or ``phased_step_plain``);
     ``heads`` the head path (:func:`..ops.cuda_farm_heads.heads_step`,
     kernel B6, or ``heads_step_plain``, with :func:`farm2_head_khat` bound
-    by ``functools.partial`` for the cached meta-spectra).  The big tail
-    runs first, so the head path adds the delay line as it writes ``y``.
+    by ``functools.partial`` for the cached meta-spectra); ``tail_dft`` the
+    big tail's transforms (kernel B7's pair, or
+    ``(tail_forward_plain, tail_inverse_plain)`` of
+    :mod:`..ops.cuda_farm_tail`).  The big tail runs first, so the head path
+    adds the delay line as it writes ``y``.
     ``head_khat``: the short-IR farm's
     :func:`..models.two_stage.small_stream_khats` of the voice-stacked state
     for this ``T``, which sends both small stages to the uniform conv core
@@ -433,8 +453,8 @@ def farm2_stream(cfg: TwoStageConfig, state: Farm2State | TwoStageState,
     with its own small-stream core
     (``fft_convolution_tpu/parallel/farm2.py:1075``), so the fused front
     end never runs here."""
-    b, p = cfg.head_block, cfg.period
-    t, v = blocks.shape[:2]
+    p = cfg.period
+    t = blocks.shape[0]
     q = t // p
     if q * p != t or q == 0:
         raise ValueError(f"T={t} must be a positive multiple of the period {p}")
@@ -444,9 +464,9 @@ def farm2_stream(cfg: TwoStageConfig, state: Farm2State | TwoStageState,
     if head_khat is not None:
         raise ValueError("head_khat is the short-IR farm's; bind farm2_head_khat into "
                          "heads=functools.partial(heads_step_plain, khat=...)")
-    # the tail's rows, one tail block a period, are copied from this view inside
-    out_t = _tail_corr_phased_fused(cfg.tail, state.tail,
-                                    blocks.reshape(q, p, v, b).transpose(1, 2), step)
+    # B7 gathers the tail's rows, one tail block a period, from the blocks
+    blocks = blocks.contiguous()
+    out_t = _tail_corr_phased_fused(cfg.tail, state.tail, blocks, step, tail_dft)
     # the two-period delay line: the pending precalc into period 0, the
     # pending output into period 1, this call's early big-tail outputs after
     y = heads(state.head, state.tail0, blocks, state.hist, state.suppress,

@@ -69,7 +69,7 @@ are Python numbers, exact at the farm's size):
 * B2 step: :func:`two_stage_step_cost`; B3 step:
   ``crossfade_stream_cost(cfg, 1)``;
 * B5 / B5p step: :func:`farm_tail_step_cost`; B6 call:
-  :func:`farm_heads_cost`;
+  :func:`farm_heads_cost`; B7's two launches: :func:`farm_tail_dft_cost`;
 * aligned ``FFTConvolver.process`` and ``farm.farm_stream``:
   :func:`stream_conv_cost` (``voices``); aligned two-stage call:
   :func:`two_stage_stream_cost`; two-engine crossfade:
@@ -379,6 +379,27 @@ def farm_cost(cfg, voices: int, t: int, tail_item: int = C64) -> Cost:
             + _tail_buffers(tb, q))
     return (farm_heads_cost(cfg, voices, t) + (tail + Cost(flops=2 * t * b)).scaled(voices)
             + _twiddles(tb))
+
+
+def farm_tail_dft_cost(cfg, voices: int, t: int, forward: bool = True,
+                       inverse: bool = True) -> Cost:
+    """Kernel B7: the farm's big-tail transforms over ``t`` head blocks (a
+    positive multiple of the period: ``q = t / period`` tail rows) on
+    ``voices`` voices.  The forward reads the rows' samples (``q x tb``
+    f32) and writes their spectra (``q x (tb+1)`` complex64); the inverse
+    reads the B5 sums (``q x (tb+1)`` complex64), writes ``y`` (``q x tb``
+    f32) and reads and writes the overlap (``tb`` f32); each reads the
+    twiddle table (``2 tb`` complex64) once and does a real FFT of ``2 tb``
+    points a row.  ``forward`` / ``inverse`` pick one launch's share."""
+    q = _aligned_t(cfg, t)
+    tb = cfg.tail_block
+    row = Cost(bytes=q * (tb + 1) * C64) + fft_cost(2 * tb, q)
+    c = Cost()
+    if forward:
+        c += (row + _vectors(q * tb, 0)).scaled(voices) + _twiddles(tb)
+    if inverse:
+        c += (row + _vectors(tb, q * tb + tb, carried=tb)).scaled(voices) + _twiddles(tb)
+    return c
 
 
 def farm_heads_cost(cfg, voices: int, t: int) -> Cost:

@@ -1,4 +1,4 @@
-"""Kernels B1, B1p, B2, B3, B4, B5 and B6 on the card against their plain
+"""Kernels B1, B1p, B2, B3, B4, B5, B6 and B7 on the card against their plain
 PyTorch versions; B1-B3 also for their arrival counters (one launch a
 step); the mesh forms on two gloo ranks sharing the card; the flagship
 batched two-stage call (fused front end, CHRONO tail) on the card.
@@ -23,7 +23,8 @@ import torch
 from fft_convolution_tpu_torch import ReverbFarm
 from fft_convolution_tpu_torch.models import crossfade, uniform
 from fft_convolution_tpu_torch.ops import (cuda_crossfade, cuda_engine, cuda_farm_heads,
-                                           cuda_farm_mac, cuda_stream, cuda_two_stage)
+                                           cuda_farm_mac, cuda_farm_tail, cuda_stream,
+                                           cuda_two_stage)
 from fft_convolution_tpu_torch.parallel import farm2
 from fft_convolution_tpu_torch.serving import (CudaCrossfadeConvolver, CudaFFTConvolver,
                                                CudaStreamingConvolver, CudaTwoStageConvolver)
@@ -737,6 +738,150 @@ def test_b6_rejects_bad_operands(dev):
     # a farm with a big tail checks B6's limits when it is built on the card
     with pytest.raises(ValueError, match="at least 4"):
         ReverbFarm(torch.zeros((1, 9000), device=dev), 2, 9000, device=dev)
+
+
+# ---- kernel B7: the reverb farm's big-tail transforms ------------------------------
+
+B7_TBS = [cuda_farm_tail.MIN_TB << i for i in range(12)]  # 64 .. 131072: all it takes
+# float32 FFTs of up to 2^18 real points with another order of sums than
+# cuFFT's: a few 1e-7 of the output's peak apart (the inverse's outputs carry
+# one more rounding, the overlap-add); 1e-5 of the peak is the repository's
+# kernel-vs-plain tolerance.
+B7_RTOL = 1e-5
+
+
+def _close_peak(got, want, what):
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert err <= B7_RTOL * scale, f"{what}: {err} at peak {scale}"
+
+
+def _b7_inputs(rng, t, v, b, tb, dev):
+    """``t`` tail rows of ``v`` voices as head blocks ``[t tb / b, v, b]``,
+    and sums ``[t, v, tb+1]`` as B5 gives them from the spectra of real
+    rows: random complex bins, real at DC and Nyquist (cuFFT's c2r, the
+    plain version on the card, reads those imaginary parts at some lengths;
+    B7 and ``torch.fft.irfft``'s contract do not, which
+    :func:`test_b7_kernel_matches_plain` checks apart)."""
+    x = torch.from_numpy(rng.standard_normal((t * tb // b, v, b)).astype(np.float32)).to(dev)
+    c = rng.standard_normal((t, v, tb + 1, 2)).astype(np.float32)
+    c[:, :, [0, -1], 1] = 0.0
+    return x, torch.view_as_complex(torch.from_numpy(c)).to(dev)
+
+
+@pytest.mark.parametrize("tb", B7_TBS)
+def test_b7_kernel_matches_plain(dev, tb):
+    """B7's two launches against their plain versions (gather and cuFFT's
+    r2c; c2r, the overlap-add and the carry) at every tail block the kernel
+    takes, over calls of T = 1, 2, 8 and 16 rows of 3 voices, the carry
+    chained across the calls: the spectra, y and the carried overlap to
+    1e-5 of each one's peak; and the inverse bit-equal whatever the
+    imaginary parts of DC and Nyquist hold (C2R's contract: not read).  Head blocks of tb / 16 samples (16 a row),
+    and whole rows (B = tb) on the last call."""
+    rng = np.random.default_rng(190 + tb.bit_length())
+    v = 3
+    overlap = torch.from_numpy((rng.standard_normal((v, tb)) * 0.1).astype(np.float32)).to(dev)
+    plain = overlap.clone()
+    before = (cuda_farm_tail.tail_forward.launches, cuda_farm_tail.tail_inverse.launches)
+    for t, b in ((1, tb // 16), (2, tb // 16), (8, tb // 16), (16, tb)):
+        x, convs = _b7_inputs(rng, t, v, b, tb, dev)
+        # the same sums with imaginary parts at DC and Nyquist, which B7 does not read
+        noisy = convs.clone()
+        torch.view_as_real(noisy)[:, :, [0, -1], 1] = torch.from_numpy(
+            rng.standard_normal((t, v, 2)).astype(np.float32)).to(dev)
+        ov_noisy = overlap.clone()
+        specs = cuda_farm_tail.tail_forward(x, tb)
+        want = cuda_farm_tail.tail_forward_plain(x, tb)
+        y = cuda_farm_tail.tail_inverse(convs, overlap)
+        yp = cuda_farm_tail.tail_inverse_plain(convs, plain)
+        y_noisy = cuda_farm_tail.tail_inverse(noisy, ov_noisy)
+        torch.cuda.synchronize()
+        _close_peak(specs, want, f"specs tb={tb} T={t}")
+        _close_peak(y, yp, f"y tb={tb} T={t}")
+        _close_peak(overlap, plain, f"overlap tb={tb} T={t}")
+        assert torch.equal(y_noisy, y) and torch.equal(ov_noisy, overlap), f"tb={tb} T={t}"
+    assert (cuda_farm_tail.tail_forward.launches,
+            cuda_farm_tail.tail_inverse.launches) == (before[0] + 4, before[1] + 8)
+
+
+@pytest.mark.parametrize("tb", [1024, 32768, 131072])
+def test_b7_replays_bit_exact(dev, tb):
+    """Fixed-order sums and no atomics: a launch twice from the same inputs
+    is bit-equal, and a voice's result does not depend on the others (its
+    slab alone)."""
+    rng = np.random.default_rng(200 + tb.bit_length())
+    v, t, b = 5, 8, 128
+    x, convs = _b7_inputs(rng, t, v, b, tb, dev)
+    overlap = torch.from_numpy(rng.standard_normal((v, tb)).astype(np.float32)).to(dev)
+    runs = []
+    for _ in range(2):
+        ov = overlap.clone()
+        runs.append((cuda_farm_tail.tail_forward(x, tb), cuda_farm_tail.tail_inverse(convs, ov),
+                     ov))
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+    ov = overlap[1:3].clone()
+    assert torch.equal(cuda_farm_tail.tail_forward(x[:, 1:3].contiguous(), tb),
+                       runs[0][0][:, 1:3])
+    assert torch.equal(cuda_farm_tail.tail_inverse(convs[:, 1:3].contiguous(), ov),
+                       runs[0][1][:, 1:3])
+    assert torch.equal(ov, runs[0][2][1:3])
+
+
+@pytest.mark.parametrize("tail_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_b7_launches_once_a_farm_call(dev, tail_dtype):
+    """A card farm launches each of B7's kernels once a call, whatever its
+    length; a farm whose transforms are set to the plain versions launches
+    none and gives the same output to B7's tolerance."""
+    rng = np.random.default_rng(210)
+    irs = (rng.standard_normal((3, 9000)) * 0.05).astype(np.float32)
+    farm = ReverbFarm(irs, 64, 9000, tail_dtype=tail_dtype, device=dev)
+    twin = ReverbFarm(irs, 64, 9000, tail_dtype=tail_dtype, device=dev)
+    twin._tail_dft = (cuda_farm_tail.tail_forward_plain, cuda_farm_tail.tail_inverse_plain)
+    fwd, inv = cuda_farm_tail.tail_forward, cuda_farm_tail.tail_inverse
+    for periods in (1, 4, 2):
+        x = rng.standard_normal((periods * farm.period, 3, 64)).astype(np.float32)
+        before = (fwd.launches, inv.launches)
+        y = farm.process(x)
+        assert (fwd.launches, inv.launches) == (before[0] + 1, before[1] + 1)
+        yp = twin.process(x)
+        assert (fwd.launches, inv.launches) == (before[0] + 1, before[1] + 1)
+        torch.cuda.synchronize()
+        _close_peak(y, yp, f"farm call of {periods} periods")
+
+
+def test_b7_rejects_bad_operands(dev):
+    rng = np.random.default_rng(211)
+    tb, v, b = 1024, 2, 64
+    x, convs = _b7_inputs(rng, 2, v, b, tb, dev)
+    overlap = torch.zeros((v, tb), device=dev)
+    fwd, inv = cuda_farm_tail.tail_forward, cuda_farm_tail.tail_inverse
+    with pytest.raises(ValueError, match="float64"):
+        fwd(x.double(), tb)
+    with pytest.raises(ValueError, match="multiple of the period"):
+        fwd(x[:-1], tb)
+    with pytest.raises(ValueError, match="not contiguous"):
+        fwd(x.transpose(0, 1).contiguous().transpose(0, 1), tb)
+    with pytest.raises(ValueError, match="64 to 131072"):
+        fwd(torch.zeros((2, v, 16), device=dev), 32)
+    with pytest.raises(ValueError, match="64 to 131072"):
+        fwd(torch.zeros((1, v, 1 << 18), device=dev), 1 << 18)
+    with pytest.raises(ValueError, match="power-of-two tail block"):
+        fwd(x, 96)
+    with pytest.raises(ValueError, match="head block"):
+        fwd(torch.zeros((2 * tb, v, 1), device=dev), tb)
+    with pytest.raises(ValueError, match="overlap"):  # the overlap on the CPU
+        inv(convs, overlap.cpu())
+    with pytest.raises(ValueError, match="convs"):  # bins for another tail block
+        inv(convs[:, :, :-2].contiguous(), overlap)
+    with pytest.raises(ValueError, match="convs"):  # not complex64
+        inv(torch.view_as_real(convs).contiguous(), overlap)
+    with pytest.raises(ValueError, match="convs"):  # not contiguous
+        inv(convs.transpose(0, 1).contiguous().transpose(0, 1), overlap)
+    with pytest.raises(ValueError, match="overlap"):  # another voice count
+        inv(convs, torch.zeros((v + 1, tb), device=dev))
+    # a farm whose tail block B7 does not take raises when it is built on the card
+    with pytest.raises(ValueError, match="64 to 131072"):
+        ReverbFarm(torch.zeros((1, 200), device=dev), 8, 200, device=dev)
 
 
 # ---- the mesh: two gloo ranks sharing the card (parallel.mesh.run_ranks) -----------

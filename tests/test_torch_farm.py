@@ -30,7 +30,7 @@ from fft_convolution_tpu.parallel import farm2 as jfarm2
 from fft_convolution_tpu_torch import ReverbFarm, interop
 from fft_convolution_tpu_torch.api_two_stage import TwoStageFFTConvolver
 from fft_convolution_tpu_torch.models import uniform
-from fft_convolution_tpu_torch.ops import cuda_farm_heads, cuda_farm_mac
+from fft_convolution_tpu_torch.ops import cuda_farm_heads, cuda_farm_mac, cuda_farm_tail
 from fft_convolution_tpu_torch.ops import fft as tfft
 from fft_convolution_tpu_torch.ops.fft import packed_to_complex
 from fft_convolution_tpu_torch.parallel import farm, farm2
@@ -171,6 +171,123 @@ def test_phased_step_wrappers_take_plain_on_cpu():
                                      specs, 0)
     assert (cuda_farm_mac.phased_step.launches,
             cuda_farm_mac.phased_step_packed.launches) == before
+
+
+# ---- kernel B7's plain versions, plan and the capacity model -------------------
+
+def _parent_tail_core(cfg, tail, blocks_rows, step):
+    """The big tail as the parent tree computed it (torch.fft around the
+    step on the ``[T, V, p, B]`` view of the blocks), kept here as the
+    reference the plain versions must equal bit for bit."""
+    tb, n = cfg.block_size, cfg.seg_count
+    t, v = blocks_rows.shape[:2]
+    rows = blocks_rows.reshape(t, v, tb)
+    specs = tfft.rdft_block(rows, cfg.fft_size).contiguous()
+    convs, tail.pre = step(tail.ring, tail.table, specs, tail.q)
+    outs = tfft.irdft_block(convs, cfg.fft_size)
+    y = outs[:, :, :tb] + torch.cat([tail.overlap[None], outs[:-1, :, tb:]])
+    tail.overlap = outs[-1, :, tb:].contiguous()
+    tail.q = (tail.q + t) % n
+    return y
+
+
+@pytest.mark.parametrize("tb,b,t_len", [(64, 4, 1), (128, 16, 3), (256, 256, 2),
+                                         (1024, 64, 5)])
+@pytest.mark.parametrize("packed", [False, True], ids=["f32", "bf16"])
+def test_tail_core_plain_is_the_parents_arithmetic(tb, b, t_len, packed):
+    """The big tail on the CPU (B7's plain versions around the plain B5
+    step, gathering the rows from the head blocks) equals the parent's torch
+    code bit for bit: y, the overlap, pre, the ring rows and the phase."""
+    rng = np.random.default_rng(64 + tb + t_len)
+    n, v = 16, 3
+    cfg = farm.uniform.make_config(tb, n * tb)
+    _, (ring, table, _) = _step_operands(rng, n, v, tb, 1, packed)
+    overlap = torch.from_numpy((rng.standard_normal((v, tb)) * 0.1).astype(np.float32))
+    blocks = torch.from_numpy(rng.standard_normal((t_len * tb // b, v, b)).astype(np.float32))
+    step = cuda_farm_mac.phased_step_plain
+
+    def state():
+        return farm2.TailState(ring=ring.clone(), table=table, overlap=overlap.clone(),
+                               pre=torch.zeros((v, tb + 1), dtype=torch.complex64), q=5)
+
+    new, old = state(), state()
+    y = farm2._tail_corr_phased_fused(cfg, new, blocks, step)
+    want = _parent_tail_core(cfg, old, blocks.reshape(t_len, tb // b, v, b).transpose(1, 2),
+                             step)
+    assert torch.equal(y, want)
+    for field in ("overlap", "pre", "ring"):
+        assert torch.equal(getattr(new, field), getattr(old, field)), field
+    assert new.q == old.q == (5 + t_len) % n
+
+
+def test_tail_wrappers_take_plain_on_cpu():
+    """On CPU tensors B7's wrappers take the plain versions and count no
+    launch; the inverse carries the overlap in place, as the kernel does."""
+    rng = np.random.default_rng(65)
+    tb, v = 128, 2
+    blocks = torch.from_numpy(rng.standard_normal((2 * tb // 32, v, 32)).astype(np.float32))
+    convs = torch.from_numpy((rng.standard_normal((2, v, tb + 1))
+                              + 1j * rng.standard_normal((2, v, tb + 1))).astype(np.complex64))
+    overlap = torch.from_numpy(rng.standard_normal((v, tb)).astype(np.float32))
+    before = (cuda_farm_tail.tail_forward.launches, cuda_farm_tail.tail_inverse.launches)
+    assert torch.equal(cuda_farm_tail.tail_forward(blocks, tb),
+                       cuda_farm_tail.tail_forward_plain(blocks, tb))
+    ov = overlap.clone()
+    y = cuda_farm_tail.tail_inverse(convs, ov)
+    outs = torch.fft.irfft(convs, n=2 * tb)
+    assert torch.equal(y[0], outs[0, :, :tb] + overlap)
+    assert torch.equal(y[1], outs[1, :, :tb] + outs[0, :, tb:])
+    assert torch.equal(ov, outs[1, :, tb:])
+    assert (cuda_farm_tail.tail_forward.launches,
+            cuda_farm_tail.tail_inverse.launches) == before
+
+
+@pytest.mark.parametrize("tb,plan", [(64, (32, 2)), (1024, (512, 2)), (32768, (16384, 2)),
+                                     (65536, (16384, 4)), (131072, (16384, 8))])
+def test_tail_plan_from_shapes(tb, plan):
+    """B7's cluster plan: a row's tb-point FFT of sample pairs on
+    max(2, tb / 16384) CTAs, at most 16384 points each."""
+    assert cuda_farm_tail.tail_plan(tb) == plan
+
+
+@pytest.mark.parametrize("b,ir_len,match", [
+    (4, 200, "64 to 131072"),             # tail block 32: B6 takes it, B7 does not
+    (8, 200, "64 to 131072"),             # tail block 32, n = 4
+    (2048, 300 * 48000, "64 to 131072"),  # tail block 262144, n = 128
+    (2, 9000, "at least 4 samples"),      # B6's refusal comes first
+    (128, 60 * 48000, None),              # the benchmark's farm: tail block 32768
+    (2048, 60 * 48000, None),             # tail block 131072, clusters of 8
+    (8, 640, None),                       # tail block 64, the dry run's farm
+    (64, 256, None),                      # a short-IR farm has no big tail
+])
+def test_check_card_shapes(b, ir_len, match):
+    """What a farm built on the card checks, with no card needed: B6's head
+    path and B7's tail block (farm2_init calls it for CUDA IRs)."""
+    if match is None:
+        farm2.check_card_shapes(b, ir_len)
+    else:
+        with pytest.raises(ValueError, match=match):
+            farm2.check_card_shapes(b, ir_len)
+
+
+@pytest.mark.parametrize("item", [8, 4], ids=["f32", "bf16"])
+def test_farm2_bytes_per_voice_tail_term_by_hand(item):
+    """The capacity model at the benchmark's farm (block 128, 60 s IRs:
+    tail block 32768, period 256, n = 256, N = 88) for an 8-period call and
+    the guard's 16-period one, counted by hand: B7 leaves B5's operands and
+    sums in flight (2 x 8 x 32769 complex64 = 4,194,432 bytes a voice at 8
+    periods), less than the head path's (2 x 2048 x 129 complex64 + 2048 x
+    128 f32 + 8 x 32768 f32 = 6,324,224 bytes), so the head path sets the
+    peak; the parent's cuFFT terms (3q (tb+1) complex64 + 2q tb f32) are
+    gone."""
+    tb, n, n_t, b = 32768, 256, 88, 128
+    state = (2 * (2 * n * 129 * 8 + 2 * b * 4 + 129 * 8)
+             + (2 * n_t * (tb + 1) * item + 2 * tb * 4 + (tb + 1) * 8)
+             + (n - 1) * 129 * 8 + 2 * tb * 4)
+    for t, tail, heads in ((2048, 4_194_432, 6_324_224), (4096, 8_388_864, 12_648_448)):
+        assert 2 * (t // 256) * (tb + 1) * 8 == tail
+        assert 2 * t * 129 * 8 + t * b * 4 + (t // 256) * tb * 4 == heads
+        assert farm2.farm2_bytes_per_voice(b, 60 * 48000, t, item) == state + heads
 
 
 # ---- block-axis causal convolution and the batched transforms ----------------
@@ -561,7 +678,7 @@ def test_farm2_bytes_per_voice_from_shapes():
                  + 2 * tb * 4)
         for t in (16, 32, 128):
             q = t // 16
-            tail = q * (3 * tnb * 8 + 2 * tb * 4)
+            tail = 2 * q * tnb * 8  # B7's spectra and B5's sums; no padded rows
             heads = 2 * t * nb * 8 + t * B * 4 + q * tb * 4
             assert farm2.farm2_bytes_per_voice(B, IR_LEN, t, item) == state + max(tail, heads)
     # the short-IR farm (256 taps at block 64: tail block 128, n = 2, no big
