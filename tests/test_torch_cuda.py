@@ -629,6 +629,54 @@ def test_reverb_farm_on_card_matches_cpu(dev, tail_dtype):
     assert launches.launches == before + 4
 
 
+def test_bf16_farm_at_the_cells_shapes_matches_float64(dev):
+    """A bf16-tail farm at the shapes of the benchmark cell ``farm60bf16.dev2``
+    (block 128, 60 s responses: tail block 32768, 88 big-tail segments; 4
+    voices) against the float64 reference (``portbench/reference/conv.py``)
+    under the cell's ``out_err`` limit: the widest gap over the reference's
+    peak in each call.  Calls of 2 and 1 periods, ``update_voices`` of one
+    voice (compared exactly from three tail periods after it, as the cell's
+    check does), then a ``reset``; kernel B5p launches once a call."""
+    from portbench import harness
+    from portbench.reference.conv import conv_tail
+
+    limit = harness.limits_for("farm60bf16.dev2")["out_err"]
+    v, b, taps = 4, 128, 2_880_000
+    g = torch.Generator(device=dev).manual_seed(2101)
+    irs = torch.randn((v, taps), generator=g, device=dev) * 0.002
+    farm = ReverbFarm(irs, b, taps, tail_dtype=torch.bfloat16, device=dev)
+    assert (farm.tail_block, farm.cfg.tail.seg_count) == (32768, 88)
+    p, tb = farm.period, farm.tail_block
+    step = cuda_farm_mac.phased_step_packed
+    dry = []                          # the blocks since the last reset
+    since = torch.zeros(v, dtype=torch.long, device=dev)  # first exact sample
+    for event in (2, 1, "update", 2, 2, "reset", 2, 1):
+        if event == "update":
+            irs[1] = torch.randn(taps, generator=g, device=dev) * 0.002
+            farm.update_voices([1], irs[1:2])
+            since[1] = len(dry) * b + 3 * tb  # update_extension's transient
+            continue
+        if event == "reset":
+            farm.reset()
+            dry, since = [], torch.zeros_like(since)
+            continue
+        x = torch.randn((event * p, v, b), generator=g, device=dev)
+        before = step.launches
+        y = farm.process(x)
+        assert step.launches == before + 1
+        s0 = len(dry) * b
+        dry.extend(x)
+        span = event * p * b
+        stream = torch.stack(dry).permute(1, 0, 2).reshape(v, -1)
+        ref = conv_tail(stream, irs, span)
+        got = y.permute(1, 0, 2).reshape(v, span).double()
+        pos = torch.arange(s0, s0 + span, device=dev)
+        exact = pos[None, :] >= since[:, None]
+        gap = float(torch.where(exact, (got - ref).abs(), 0.0).max())
+        peak = float(torch.where(exact, ref.abs(), 0.0).max())
+        assert torch.isfinite(got).all() and gap <= limit * peak, (event, gap / peak)
+
+
 # ---- kernel B6: the reverb farm's head path --------------------------------------
 
 def _b6_state(rng, v, b, ir_len, dev):
