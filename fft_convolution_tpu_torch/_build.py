@@ -45,8 +45,8 @@ _SIGNATURES = {
     "fdl_b5p_step": [_P] * 5 + [_I] * 4 + [_P],
     # x, ring, hist, h_ir, t_ir, overlap, tw_b, tw_m, scratch, y, overlap_out,
     # pre_h, pre_t, w, d_pre, d_out, d_rows; voices, b, n, T, cur, cur_new,
-    # meta, fwd_per, fin_per; stream
-    "fdl_b6_heads": [_P] * 17 + [_I] * 9 + [_P],
+    # meta, fwd_per, fin_per, col_tile, col_grid; stream
+    "fdl_b6_heads": [_P] * 17 + [_I] * 11 + [_P],
     # x, tw, specs; voices, b, tb, T; stream
     "fdl_b7_tail_fwd": [_P] * 3 + [_I] * 4 + [_P],
     # convs, tw, y, overlap; voices, tb, T; stream

@@ -34,18 +34,42 @@
 //   voice, one team of B/16 threads a block: its rFFT (the B-point FFT of
 //   the sample pairs and the post-twiddle), staged in shared memory
 //   bins-major and written to [V, B+1, T] in runs of the tile.
-// - b6_columns: one thread block of M/16 threads a (voice, bin) column.  It
+// - b6_columns: a team of M/16 threads a (voice, bin) column.  It
 //   transforms the column's 2n table rows (no cached meta-spectra: 2n rows
 //   read instead of m), then convolves along the block axis by overlap-save
 //   at a meta size M (256, 1024 or 4096, the least >= 4n): each segment
-//   loads M - 1 ext rows straight into the transform's registers (history
-//   from the state on the first, the bins-major new spectra after), forward
-//   FFT, the product with the table's spectrum, inverse FFT, and writes its
-//   S = M - 2n rows of conv.  Shared memory and occupancy do not depend on
-//   T.  The last segment's window holds the exit rows, so the same launch
-//   writes the ring, hist and both pre (a fixed-order warp reduction).  The
-//   column's old rows are read only in the first segment, before the last
-//   segment's writes (a barrier apart), so the in-place update is safe.
+//   takes M - 1 ext rows (history from the state on the first, the
+//   bins-major new spectra after), forward FFT, the product with the
+//   table's spectrum, inverse FFT, and writes its S = M - 2n rows of conv.
+//   The last segment's window holds the exit rows, so the same launch writes
+//   the ring, hist and both pre (a fixed-order reduction in the team).
+//   What bounds it: per column 8 (6n - 2 + 2T) bytes against three
+//   M-point FFTs at T <= S, so bytes at 3.35 TB/s outweigh the FP32 work;
+//   but a thread block a column (the first form) reached 27-37 % of that
+//   floor: it read the state rows one float2 per 1032-byte row (a 32-byte
+//   sector each), loaded its twiddles anew and left nothing in flight while
+//   it waited on its rows.  So the launch is persistent: SMs x the blocks
+//   an SM holds thread blocks of G teams (ColShape) walk tiles of G
+//   adjacent columns, whose state rows are runs of G x 8 bytes; each item
+//   (a tile's segment) is staged in shared memory by cp.async while the
+//   item before it transforms, and a thread's twiddles load once.  The
+//   column's old rows are read only in its first segment's staging, before
+//   the last segment's writes (block barriers apart), so the in-place update
+//   is safe.  At the farm's shape (n = 256, M = 1024) that reads 49-50 % of
+//   the floor at T = 512 and 44 % at T = 2048 (1024 voices: 2.98 -> 1.64
+//   and 4.81 -> 4.04 ms), one 256-thread block an SM at 233 registers a
+//   thread; M = 256 and 4096 run 2.3x and 1.7x faster.  Alone, the loads
+//   and stores take 1.17 / 2.62 ms and the transforms 1.03 / 2.87 ms, and
+//   the two overlap only in part; of the memory path the exit rows' 32-byte
+//   partial-sector writes cost most (without them 0.91 ms at T = 512; with
+//   every state row contiguous 0.97).  Measured and dropped (NVIDIA H100
+//   80GB HBM3, 700 W; profile_farm_heads.py): G = 2 at 3 blocks an SM (168
+//   registers, 228 KB of shared memory: slower than the first form), G = 2
+//   at 2; two items staged ahead (less L1 and more registers: 3-33 %
+//   slower); the window as a ring of M rows, so a later segment loads only
+//   its new rows; the exit stores after the transforms; each block on one
+//   contiguous range of tiles; a shared-memory carveout hint; 16-byte
+//   cp.async.cg for the spectra rows.
 // - b6_finish: a thread block takes a tile of consecutive blocks of one
 //   voice and the block before (bins-major reads), subtracts w, runs the
 //   inverse rFFTs, one team a block, and writes y [T, V, B] (the layout the
@@ -344,18 +368,49 @@ b6_forward(const float* __restrict__ x, const float2* __restrict__ tw, float2* _
   }
 }
 
-// The sum of v over the first LANES lanes of the warp (a power of two,
-// at most 32), in a fixed order, in lane 0.
-template <int LANES>
-__device__ __forceinline__ float2 warp_sum(float2 v) {
-  constexpr unsigned kMask = LANES >= 32 ? 0xffffffffu : (1u << LANES) - 1;
-#pragma unroll
-  for (int o = (LANES >= 32 ? 32 : LANES) / 2; o > 0; o >>= 1) {
-    v.x += __shfl_down_sync(kMask, v.x, o);
-    v.y += __shfl_down_sync(kMask, v.y, o);
+// The column launch's shape at M = 2^LOG: a team of M/16 threads a
+// (voice, bin) column and G teams a thread block, which takes tiles of G
+// adjacent columns (bins k0 .. k0 + G - 1 of a voice; a tile crosses into
+// the next voice where V (B+1) is not a multiple of G).  Shared memory, in
+// float2: each team's table spectrum and exchange buffers; each column's
+// staged window (M rows) and table (2n rows, at a pitch of round16(2n) +
+// kPad); each team's warp sums of the two pre.  kPad makes both pitches
+// kPad mod 16, so a warp that stages or reads G bins of 32/G rows hits 16
+// distinct 8-byte bank pairs a half-warp.  kColBlocks: the thread blocks
+// of the largest n (M/4) that an SM holds, which __launch_bounds__ then
+// guarantees in registers.
+__host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
+constexpr int kSmemPerSm = 233472;   // shared memory of an SM (228 KB)
+constexpr int kSmemReserved = 1024;  // of it, held back for each resident thread block
+
+// The form at M = 256, 1024, 4096 (cuda_farm_heads.COLUMN_FORM): G and each
+// team's exchange buffers (two: one barrier an exchange; one: two).
+template <int LOG>
+constexpr int kColTile = LOG == 8 ? 8 : LOG == 10 ? 4 : 1;
+template <int LOG>
+constexpr int kColBuffers = LOG == 10 ? 2 : 1;
+
+template <int LOG>
+struct ColShape {
+  static constexpr int G = kColTile<LOG>, kBufs = kColBuffers<LOG>;
+  static constexpr int kM = 1 << LOG, kNT = kM / 16, kThreads = G * kNT;
+  static constexpr int kTeam = G == 1 ? 0 : kNT;  // fft's team: the whole block for one team
+  static constexpr int kPad = 16 / G;
+  static constexpr int kWin = kM + kPad;
+  static constexpr int kRed = kNT > 32 ? 2 * (kNT / 32) : 0;  // teams of half a warp shuffle only
+  static constexpr int kExit = 4;  // ring (or hist) rows a thread stores: n / (kThreads / G) <= 4
+  __host__ __device__ static constexpr int tab_pitch(int n) { return round16(2 * n) + kPad; }
+  __host__ __device__ static constexpr int smem(int n) {
+    return G * (kM + kBufs * padded16(kM) + kWin + tab_pitch(n) + kRed);
   }
-  return v;
-}
+};
+
+template <int LOG>
+constexpr int kColBlocks =
+    kSmemPerSm / (ColShape<LOG>::smem((1 << LOG) / 4) * 8 + kSmemReserved) <
+            2048 / ColShape<LOG>::kThreads
+        ? kSmemPerSm / (ColShape<LOG>::smem((1 << LOG) / 4) * 8 + kSmemReserved)
+        : 2048 / ColShape<LOG>::kThreads;
 
 struct ColArgs {
   const float2* spec;  // c64 [V, nb, T]: this call's spectra, bins-major
@@ -368,128 +423,231 @@ struct ColArgs {
   float2* pre_h;       // c64 [V, nb] out
   float2* pre_t;       // c64 [V, nb] out
   int n, nb, nblocks, cur, cur_new;
+  int columns, tiles;  // V nb; tiles of G columns, the last one ragged
 };
 
-// One thread block of M/16 threads a (voice, bin) column (module note).  Its
-// registers are left uncapped: capped for more blocks an SM, it spilled and
-// ran 31-52 % slower (NVIDIA H100 80GB HBM3, 700 W; profile_farm_heads.py).
-// Dynamic shared memory: (2 padded16(M) + M + 2n + 64) float2: two exchange
-// buffers, the table's spectrum (point q of thread j at q M/16 + j), the raw
-// table column and the warp sums of the two pre.
+// One 8-byte copy from global to shared memory, asynchronous (cp.async.ca).
+__device__ __forceinline__ void cp_async8(float2* dst, const float2* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Work item `it` of this thread block: tile blockIdx.x + (it / segments)
+// gridDim.x, segment it % segments.
+struct ColItem {
+  int tile, seg;
+  __device__ ColItem(int it, int segments)
+      : tile(static_cast<int>(blockIdx.x + (it / segments) * gridDim.x)), seg(it % segments) {}
+};
+
+// Stage work item `it` into shared memory by cp.async: at segment 0 each
+// column's 2n table rows (head, then tail0) and its history (hist, then the
+// ring read backwards from cur) G bins at a time, so a row of the tile is
+// one run of G x 8 bytes; then the segment's rows of this call's spectra, a
+// column at a time (contiguous).  A thread stages column tid mod G of every
+// state row it takes (the block's threads are a multiple of G).
 template <int LOG>
-__global__ void __launch_bounds__((1 << LOG) / 16) b6_columns(const ColArgs a) {
-  constexpr int M = 1 << LOG, NT = M / 16, PM = padded16(M);
+__device__ __forceinline__ void stage_item(const ColArgs& a, int it, int segments, float2* wins,
+                                           float2* tabs, int tp) {
+  using S = ColShape<LOG>;
+  constexpr int M = S::kM, THREADS = S::kThreads, G = S::G;
+  const int n = a.n, nb = a.nb, tid = threadIdx.x;
+  const ColItem item(it, segments);
+  const int e0 = item.seg * (M - 2 * n);
+  if (item.seg == 0) {
+    const int lg = tid % G, c = item.tile * G + lg;
+    if (c < a.columns) {
+      const int v = c / nb, k = c - v * nb;
+      const size_t rows = static_cast<size_t>(v) * n * nb + k;
+      const size_t hrows = static_cast<size_t>(v) * (n - 1) * nb + k;
+      float2* wl = wins + lg * S::kWin;
+      float2* tl = tabs + lg * tp;
+      for (int r = tid / G; r < n; r += THREADS / G) {
+        int slot = a.cur - r;  // ext row n - 1 + r: the ring read backwards from cur
+        if (slot < 0) slot += n;
+        cp_async8(tl + r, a.h_ir + rows + r * nb);
+        cp_async8(tl + n + r, a.t_ir + rows + r * nb);
+        cp_async8(wl + n - 1 + r, a.ring + rows + slot * nb);
+        if (r < n - 1) cp_async8(wl + r, a.hist + hrows + r * nb);
+      }
+    }
+  }
+  // ext rows lo .. hi - 1 of the window e0 .. e0 + M - 2 are new spectra
+  const int lo = max(e0, 2 * n - 1), hi = min(e0 + M - 1, 2 * n - 1 + a.nblocks);
+  for (int g = 0; g < G; ++g) {
+    const int c = item.tile * G + g;
+    if (c >= a.columns) break;
+    const float2* src = a.spec + static_cast<size_t>(c) * a.nblocks + (lo - (2 * n - 1));
+    float2* dst = wins + g * S::kWin + (lo - e0);
+    for (int r = tid; r < hi - lo; r += THREADS) cp_async8(dst + r, src + r);
+  }
+}
+
+// Persistent thread blocks of G teams (module note): the grid (at most
+// tiles; heads_plan: SMs x kColBlocks) walks the tiles in a fixed order,
+// and a thread block takes each of its tiles' segments in turn.  An item's
+// rows are staged in shared memory while the item before it runs.  Once
+// they have landed, its threads take into registers everything they read
+// of them: the table column and the rows both pre need (segment 0, kept to
+// the tile's last segment), the window, the exit rows (last segment; the
+// whole block, G bins a row) and both pre; then a barrier frees the
+// buffers for the next item, whose loads then run under this item's
+// stores and transforms.  Each team's transforms synchronise the team
+// alone (named barriers; half-warp teams a warp); two block-wide barriers
+// an item hand the buffers over.  Each thread's twiddles are loaded once
+// for the block's lifetime.
+template <int LOG>
+__global__ void __launch_bounds__(ColShape<LOG>::kThreads, kColBlocks<LOG>)
+b6_columns(const ColArgs a) {
+  using S = ColShape<LOG>;
+  constexpr int M = S::kM, NT = S::kNT, PM = padded16(M), TEAM = S::kTeam;
+  constexpr int THREADS = S::kThreads, EX = S::kExit, G = S::G;
   extern __shared__ float4 smem[];
   const int n = a.n, nb = a.nb, nblocks = a.nblocks;
   const int step = M - 2 * n, len = 2 * n - 1 + nblocks;
-  const int col = blockIdx.x, v = col / nb, k = col - v * nb;
-  const int j = threadIdx.x;
-  float2* b0 = reinterpret_cast<float2*>(smem);
-  float2* b1 = b0 + PM;
-  float2* khs = b1 + PM;
-  float2* hraw = khs + M;
-  float2* red = hraw + 2 * n;
-  const size_t stage_rows = static_cast<size_t>(v) * n * nb + k;
-  const float2* h_col = a.h_ir + stage_rows;
-  const float2* t_col = a.t_ir + stage_rows;
-  float2* ring_col = a.ring + stage_rows;
-  float2* hist_col = a.hist + static_cast<size_t>(v) * (n - 1) * nb + k;
-  const float2* sp = a.spec + static_cast<size_t>(col) * nblocks;
-  float2* cv = a.conv + static_cast<size_t>(col) * nblocks;
+  const int segments = (nblocks + step - 1) / step;
+  const int tp = S::tab_pitch(n);
+  const int g = threadIdx.x / NT, j = threadIdx.x - g * NT;  // column g of a tile, thread j of its team
+  const int lg = threadIdx.x % G, row0 = threadIdx.x / G;    // the exit rows' column and first row
+  float2* const all = reinterpret_cast<float2*>(smem);
+  float2* const khs = all + g * M;  // point q of thread j at q M/16 + j, read back by that thread only
+  float2* const b0 = all + G * M + g * S::kBufs * PM;
+  float2* const b1 = b0 + (S::kBufs - 1) * PM;
+  float2* const wins = all + G * (M + S::kBufs * PM);  // [G][kWin]
+  float2* const tabs = wins + G * S::kWin;              // [G][tp]
+  float2* const red = tabs + G * tp + g * S::kRed;
+  const float2* const win = wins + g * S::kWin;
+  const float2* const tab = tabs + g * tp;
 
   FftTw<LOG> ftw;
   fft_twiddles<LOG>(ftw, a.tw, j);
-  // the combined table column, zero-padded to M, and its spectrum
-  float2 x[16];
-#pragma unroll
-  for (int q = 0; q < 16; ++q) {
-    const int i = j + q * NT;
-    float2 h = make_float2(0.f, 0.f);
-    if (i < n) {
-      h = __ldg(h_col + static_cast<size_t>(i) * nb);
-    } else if (i < 2 * n) {
-      h = __ldg(t_col + static_cast<size_t>(i - n) * nb);
-    }
-    if (i < 2 * n) hraw[i] = h;
-    x[q] = h;
-  }
-  int sel = 0;
-  fft<LOG, false, 0>(x, b0, b1, sel, ftw, j, 0);
-#pragma unroll
-  for (int q = 0; q < 16; ++q) khs[q * NT + j] = x[q];  // read back by this thread only
   const float scale = 1.f / static_cast<float>(M);
-  const int segments = (nblocks + step - 1) / step;
-
-  for (int s = 0; s < segments; ++s) {
-    const int e0 = s * step;
+  const int grid = static_cast<int>(gridDim.x);
+  const int items = ((a.tiles - 1 - static_cast<int>(blockIdx.x)) / grid + 1) * segments;
+  stage_item<LOG>(a, 0, segments, wins, tabs, tp);
+  cp_async_commit();
+  int sel = 0;
+  // table rows i = j + u M/16 and n + i of the team's column, from its
+  // first segment to its last, for both pre (i = 1 .. n-1; u < 4 as n <= M/4)
+  float2 hrow[4], trow[4];
+  for (int it = 0; it < items; ++it) {
+    const ColItem item(it, segments);
+    const int e0 = item.seg * step, c = item.tile * G + g, cl = item.tile * G + lg;
+    const bool live = c < a.columns, last = item.seg == segments - 1;
+    cp_async_wait_all();
+    __syncthreads();  // the item's rows have landed, for every thread
+    float2 x[16], h[16];
+    if (item.seg == 0) {  // the combined table column, zero-padded to M
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int i = j + q * NT;
+        h[q] = live && i < 2 * n ? tab[i] : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = j + u * NT;
+        hrow[u] = h[u];
+        trow[u] = live && i < n ? tab[n + i] : make_float2(0.f, 0.f);
+      }
+    }
     // ext rows e0 .. e0 + M - 2 into the transform's points; zero past the
     // end and in the last point
 #pragma unroll
     for (int q = 0; q < 16; ++q) {
-      const int i = j + q * NT, e = e0 + i;
-      float2 xv = make_float2(0.f, 0.f);
-      if (i < M - 1 && e < len) {
-        if (e < n - 1) {
-          xv = hist_col[static_cast<size_t>(e) * nb];
-        } else if (e < 2 * n - 1) {
-          int slot = a.cur - (e - (n - 1));  // the ring read backwards from cur
-          if (slot < 0) slot += n;
-          xv = ring_col[static_cast<size_t>(slot) * nb];
-        } else {
-          xv = sp[e - (2 * n - 1)];
-        }
-      }
-      x[q] = xv;
+      const int i = j + q * NT;
+      x[q] = live && i < M - 1 && e0 + i < len ? win[i] : make_float2(0.f, 0.f);
     }
-    if (s == segments - 1) {
-      // the exit state from the window (every read of the old rows lies in
-      // segment 0's loads, before the barrier below)
-      float2* win = sel ? b1 : b0;
-      sel ^= 1;
+    // the exit state, from the last segment's window: ring slot (cur' + d)
+    // mod n <- ext[L-d], d = 1..n; hist row r <- ext[L-2n+1+r]
+    float2 er[EX], eh[EX];
+    if (last) {
+      const float2* wl = wins + lg * S::kWin - e0;
 #pragma unroll
-      for (int q = 0; q < 16; ++q) win[pad16(j + q * NT)] = x[q];
-      __syncthreads();
-      for (int d = 1 + j; d <= n; d += NT) {
-        int slot = a.cur_new + d;
-        if (slot >= n) slot -= n;
-        ring_col[static_cast<size_t>(slot) * nb] = win[pad16(len - d - e0)];
+      for (int u = 0; u < EX; ++u) {
+        const int r = row0 + u * (THREADS / G);
+        er[u] = r < n ? wl[len - 1 - r] : make_float2(0.f, 0.f);
+        eh[u] = r < n - 1 ? wl[len - 2 * n + 1 + r] : make_float2(0.f, 0.f);
       }
-      for (int r = j; r < n - 1; r += NT)
-        hist_col[static_cast<size_t>(r) * nb] = win[pad16(len - 2 * n + 1 + r - e0)];
+      // both pre = sum_{i=1}^{n-1} table[i] ext[L-1-i]: the team's threads,
+      // a shuffle tree in each warp, then its warps in order
       float2 ph = make_float2(0.f, 0.f), pt = make_float2(0.f, 0.f);
-      for (int i = 1 + j; i < n; i += NT) {
-        const float2 xv = win[pad16(len - 1 - i - e0)];
-        fdl::cmac(ph, xv, hraw[i]);
-        fdl::cmac(pt, xv, hraw[n + i]);
-      }
-      ph = warp_sum<NT>(ph);
-      pt = warp_sum<NT>(pt);
-      if ((j & 31) == 0) {
-        red[j >> 5] = ph;
-        red[32 + (j >> 5)] = pt;
-      }
-      __syncthreads();
-      if (j == 0) {
-        float2 sh = red[0], st = red[32];
-        for (int w = 1; w < (NT + 31) / 32; ++w) {
-          sh.x += red[w].x;
-          sh.y += red[w].y;
-          st.x += red[32 + w].x;
-          st.y += red[32 + w].y;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = j + u * NT;
+        if (i >= 1 && i < n) {
+          const float2 xv = win[len - 1 - i - e0];
+          fdl::cmac(ph, xv, hrow[u]);
+          fdl::cmac(pt, xv, trow[u]);
         }
-        a.pre_h[col] = sh;
-        a.pre_t[col] = st;
+      }
+      constexpr int W = NT < 32 ? NT : 32;
+#pragma unroll
+      for (int o = W / 2; o > 0; o >>= 1) {
+        ph.x += __shfl_down_sync(0xffffffffu, ph.x, o, W);
+        ph.y += __shfl_down_sync(0xffffffffu, ph.y, o, W);
+        pt.x += __shfl_down_sync(0xffffffffu, pt.x, o, W);
+        pt.y += __shfl_down_sync(0xffffffffu, pt.y, o, W);
+      }
+      if constexpr (NT > 32) {
+        if ((j & 31) == 0) {
+          red[j >> 5] = ph;
+          red[NT / 32 + (j >> 5)] = pt;
+        }
+        team_sync<TEAM>(1 + g);
+        if (j == 0) {
+#pragma unroll
+          for (int w = 1; w < NT / 32; ++w) {
+            ph.x += red[w].x;
+            ph.y += red[w].y;
+            pt.x += red[NT / 32 + w].x;
+            pt.y += red[NT / 32 + w].y;
+          }
+        }
+      }
+      if (j == 0 && live) {
+        a.pre_h[c] = ph;
+        a.pre_t[c] = pt;
       }
     }
-    fft<LOG, false, 0>(x, b0, b1, sel, ftw, j, 0);
+    __syncthreads();  // every read of this item's buffers is done
+    if (it + 1 < items) stage_item<LOG>(a, it + 1, segments, wins, tabs, tp);
+    cp_async_commit();
+    if (last && cl < a.columns) {
+      const int v = cl / nb, k = cl - v * nb;
+      float2* ring = a.ring + static_cast<size_t>(v) * n * nb + k;
+      float2* hist = a.hist + static_cast<size_t>(v) * (n - 1) * nb + k;
+#pragma unroll
+      for (int u = 0; u < EX; ++u) {
+        const int r = row0 + u * (THREADS / G);  // ring row d = r + 1
+        int slot = a.cur_new + r + 1;
+        if (slot >= n) slot -= n;
+        if (r < n) ring[slot * nb] = er[u];
+        if (r < n - 1) hist[r * nb] = eh[u];
+      }
+    }
+    if (item.seg == 0) {  // the table's spectrum
+      fft<LOG, false, TEAM>(h, b0, b1, sel, ftw, j, 1 + g);
+#pragma unroll
+      for (int q = 0; q < 16; ++q) khs[q * NT + j] = h[q];
+    }
+    fft<LOG, false, TEAM>(x, b0, b1, sel, ftw, j, 1 + g);
 #pragma unroll
     for (int q = 0; q < 16; ++q) x[q] = fdl::cmul(x[q], khs[q * NT + j]);
-    fft<LOG, true, 0>(x, b0, b1, sel, ftw, j, 0);
+    fft<LOG, true, TEAM>(x, b0, b1, sel, ftw, j, 1 + g);
+    if (live) {
+      float2* cv = a.conv + static_cast<size_t>(c) * nblocks;
 #pragma unroll
-    for (int q = 0; q < 16; ++q) {
-      const int r = j + q * NT - (2 * n - 1);  // conv row e0 + r
-      if (r >= 0 && r < step && e0 + r < nblocks)
-        cv[e0 + r] = make_float2(x[q].x * scale, x[q].y * scale);
+      for (int q = 0; q < 16; ++q) {
+        const int r = j + q * NT - (2 * n - 1);  // conv row e0 + r
+        if (r >= 0 && r < step && e0 + r < nblocks)
+          cv[e0 + r] = make_float2(x[q].x * scale, x[q].y * scale);
+      }
     }
   }
 }
@@ -627,20 +785,19 @@ cudaError_t launch_finish(const FinArgs& fa, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// The column launch at M = 2^LOG over V voices, whose tile width and grid
+// must be the plan's (col_tile, col_grid: at least one tile a thread block).
 template <int LOG>
-size_t column_smem(int n) {
-  return (2 * static_cast<size_t>(padded16(1 << LOG)) + (1 << LOG) + 2 * static_cast<size_t>(n) +
-          64) *
-         sizeof(float2);
-}
-
-template <int LOG>
-cudaError_t launch_columns(const ColArgs& ca, int voices, cudaStream_t st) {
-  const size_t bytes = column_smem<LOG>(ca.n);
-  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
+cudaError_t launch_columns(ColArgs ca, int voices, int tile, int grid, cudaStream_t st) {
+  using S = ColShape<LOG>;
+  static_assert(kColBlocks<LOG> >= 1, "a column thread block must fit an SM");
+  ca.columns = voices * ca.nb;
+  ca.tiles = (ca.columns + S::G - 1) / S::G;
+  const size_t bytes = static_cast<size_t>(S::smem(ca.n)) * sizeof(float2);
+  if (tile != S::G || grid < 1 || grid > ca.tiles || bytes > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t e = fdl::allow_smem(b6_columns<LOG>, bytes);
   if (e != cudaSuccess) return e;
-  b6_columns<LOG><<<voices * ca.nb, (1 << LOG) / 16, bytes, st>>>(ca);
+  b6_columns<LOG><<<grid, S::kThreads, bytes, st>>>(ca);
   return cudaGetLastError();
 }
 
@@ -685,16 +842,17 @@ cudaError_t launch_block_kernel(bool finish, int log_b, int fwd_per, int fin_per
 // voices, b (4 to 2048), n, T (a positive multiple of n), cur (the ring
 // head), cur_new ((cur - T) mod n), M (the meta size: 256, 1024 or 4096, at
 // least 4n), fwd_per and fin_per (blocks a forward and a finishing thread
-// block; cuda_farm_heads.heads_plan).  Three launches; returns
-// cudaGetLastError() after them (cudaErrorInvalidValue for a shape or plan
-// the kernels cannot run).
+// block), col_tile and col_grid (the columns of a column thread block's tile
+// and its persistent thread blocks; cuda_farm_heads.heads_plan).  Three
+// launches; returns cudaGetLastError() after them (cudaErrorInvalidValue
+// for a shape or plan the kernels cannot run).
 extern "C" int fdl_b6_heads(const float* x, void* ring, void* hist, const void* h_ir,
                             const void* t_ir, const float* overlap, const void* tw_b,
                             const void* tw_m, void* scratch, float* y, float* overlap_out,
                             void* pre_h, void* pre_t, const void* w, const float* d_pre,
                             const float* d_out, const float* d_rows, int voices, int b, int n,
                             int nblocks, int cur, int cur_new, int meta, int fwd_per,
-                            int fin_per, void* stream) {
+                            int fin_per, int col_tile, int col_grid, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nb = b + 1;
   int log_b = 0;
@@ -727,10 +885,12 @@ extern "C" int fdl_b6_heads(const float* x, void* ring, void* hist, const void* 
                    nb,
                    nblocks,
                    cur,
-                   cur_new};
-  e = meta == 256    ? launch_columns<8>(ca, voices, st)
-      : meta == 1024 ? launch_columns<10>(ca, voices, st)
-                     : launch_columns<12>(ca, voices, st);
+                   cur_new,
+                   0,
+                   0};
+  e = meta == 256    ? launch_columns<8>(ca, voices, col_tile, col_grid, st)
+      : meta == 1024 ? launch_columns<10>(ca, voices, col_tile, col_grid, st)
+                     : launch_columns<12>(ca, voices, col_tile, col_grid, st);
   if (e != cudaSuccess) return static_cast<int>(e);
 
   return static_cast<int>(

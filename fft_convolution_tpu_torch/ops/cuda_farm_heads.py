@@ -27,11 +27,13 @@ in period 0), its pending output (period 1) and this call's tail rows (row
 ``j - 2`` in period ``j``), so the farm's delay line costs no extra pass.
 
 :func:`heads_step` launches the kernel for CUDA tensors (three launches: the
-forward transforms, one thread block a (voice, bin) column for the
-block-axis convolution and the exit state, the inverse transforms; shaped
-by :func:`heads_plan`, a pure function the CPU tests cover) and takes the
-plain PyTorch version :func:`heads_step_plain` only for CPU tensors; it
-never falls back.  ``heads_step.launches`` counts its calls.  The plain
+forward transforms; persistent thread blocks over tiles of adjacent (voice,
+bin) columns for the block-axis convolution and the exit state, each
+tile's rows loaded while the tile before it transforms; the inverse
+transforms; shaped by :func:`heads_plan`, a pure function the CPU tests
+cover) and takes the plain PyTorch version :func:`heads_step_plain` only
+for CPU tensors; it never falls back.  ``heads_step.launches`` counts its
+calls and ``heads_step.plan`` is the last launch's plan.  The plain
 version takes an optional ``khat`` (the table's cached meta-spectra,
 :func:`..parallel.farm2.farm2_head_khat`; a caller binds it with
 ``functools.partial``); the kernel transforms the raw table column by
@@ -59,33 +61,63 @@ METAS = (256, 1024, 4096)  # the column transform's sizes (radix-16 stages and o
 MAX_TILE = 16      # blocks a forward or finishing thread block, at most
 MAX_THREADS = 1024
 MAX_SMEM = 232448  # dynamic shared memory a thread block may opt into (227 KB)
+SMEM_PER_SM = 233472  # shared memory of an H100 SM (228 KB)
+SMEM_RESERVED = 1024  # of it, held back for each resident thread block
+H100_SMS = 132
+# The column launch's form by M (kColTile, kColBuffers in the kernel): G
+# adjacent columns (teams of M/16 threads) a thread block's tile, and each
+# team's exchange buffers.  A thread block stages one work item (a tile's
+# segment) ahead.
+COLUMN_FORM = {256: (8, 1), 1024: (4, 2), 4096: (1, 1)}
 
 
 def column_smem(meta: int, n: int) -> int:
-    """Dynamic shared memory of a column thread block (``column_smem`` of
-    ``csrc/b6_farm_heads.cu``): two exchange buffers padded one float2 in
-    seventeen, the table's spectrum, the raw table column and 64 warp
-    sums."""
-    return 8 * (2 * (meta + meta // 16) + meta + 2 * n + 64)
+    """Dynamic shared memory of a column thread block (``ColShape::smem`` of
+    ``csrc/b6_farm_heads.cu``), for its G columns and E exchange buffers
+    (``COLUMN_FORM[meta]``): each team's table spectrum (M complex) and
+    exchange buffers padded one float2 in seventeen, each column's staged
+    window (M + 16/G) and table (2n rounded up to 16, + 16/G), and the warp
+    sums of the two pre for a team of more than a warp."""
+    (g, bufs), team = COLUMN_FORM[meta], meta // 16
+    pad, red = 16 // g, 2 * (team // 32) if team > 32 else 0
+    return 8 * g * (meta + bufs * (meta + meta // 16) + meta + pad + -(-2 * n // 16) * 16
+                    + pad + red)
+
+
+def column_blocks(meta: int) -> int:
+    """Column thread blocks an SM holds at any n the meta size takes (the
+    shared memory at n = M/4, and 2048 threads); ``__launch_bounds__`` makes
+    the registers hold as many."""
+    threads = COLUMN_FORM[meta][0] * meta // 16
+    return min(SMEM_PER_SM // (column_smem(meta, meta // 4) + SMEM_RESERVED), 2048 // threads)
 
 
 @dataclasses.dataclass(frozen=True)
 class HeadsPlan:
-    meta: int      # M: the column transform, the least of METAS >= 4n
-    step: int      # conv rows a segment of the overlap-save: M - 2n
-    segments: int  # segments a column: ceil(T / step)
-    fwd_tile: int  # blocks a forward thread block
-    fin_tile: int  # blocks a finishing thread block (it also inverts the one before)
+    meta: int         # M: the column transform, the least of METAS >= 4n
+    step: int         # conv rows a segment of the overlap-save: M - 2n
+    segments: int     # segments a column: ceil(T / step)
+    fwd_tile: int     # blocks a forward thread block
+    fin_tile: int     # blocks a finishing thread block (it also inverts the one before)
+    col_tile: int     # G: adjacent (voice, bin) columns a column thread block takes at a time
+    col_threads: int  # threads a column thread block: G teams of M/16
+    col_blocks: int   # column thread blocks an SM holds
+    col_tiles: int    # tiles of the V (B+1) columns: ceil(V (B+1) / G)
+    col_last: int     # columns of the last tile (G unless ragged)
+    col_grid: int     # persistent column thread blocks: min(tiles, SMs x col_blocks)
 
 
-def heads_plan(n: int, b: int, t: int) -> HeadsPlan:
-    """The launch shape for ``n`` head segments, block ``b`` and ``T = t``
-    blocks; raises ``ValueError`` for a shape the kernel cannot run.  A
-    block transform runs on a team of ``b / 16`` threads (at least one); a
-    thread block holds at most 1024 threads, for teams of more than a warp
-    at most 15 teams (one named barrier each), and as many teams as leave
-    the forward's exchange buffers (``b + b/16`` complex a team) and its
-    staging tile (``b + 1`` a team and one more) in shared memory."""
+def heads_plan(n: int, b: int, t: int, v: int = 1, sms: int = H100_SMS) -> HeadsPlan:
+    """The launch shape for ``n`` head segments, block ``b``, ``T = t``
+    blocks and ``v`` voices on a card of ``sms`` SMs; raises ``ValueError``
+    for a shape the kernel cannot run.  A block transform runs on a team of
+    ``b / 16`` threads (at least one); a thread block holds at most 1024
+    threads, for teams of more than a warp at most 15 teams (one named
+    barrier each), and as many teams as leave the forward's exchange
+    buffers (``b + b/16`` complex a team) and its staging tile (``b + 1`` a
+    team and one more) in shared memory.  The column launch runs as many
+    persistent thread blocks as the card holds, each walking tiles of
+    adjacent columns (``COLUMN_FORM[M]``), at most one a tile."""
     check_block(b)
     if b < 4:
         raise ValueError(f"B6 takes blocks of at least 4 samples, got {b}")
@@ -100,9 +132,17 @@ def heads_plan(n: int, b: int, t: int) -> HeadsPlan:
     team = max(b // 16, 1)
     teams = min(MAX_THREADS // team if team <= 32 else min(MAX_THREADS // team, 15),
                 (MAX_SMEM // 8 - (b + 1)) // (b + b // 16 + b + 1))
+    if v < 1 or sms < 1:
+        raise ValueError(f"B6 needs at least one voice and one SM, got v={v}, sms={sms}")
     step = meta - 2 * n
+    tile, columns = COLUMN_FORM[meta][0], v * (b + 1)
+    tiles = -(-columns // tile)
+    blocks = column_blocks(meta)
     return HeadsPlan(meta=meta, step=step, segments=-(-t // step),
-                     fwd_tile=min(MAX_TILE, teams), fin_tile=min(MAX_TILE, teams - 1))
+                     fwd_tile=min(MAX_TILE, teams), fin_tile=min(MAX_TILE, teams - 1),
+                     col_tile=tile, col_threads=tile * meta // 16, col_blocks=blocks,
+                     col_tiles=tiles, col_last=columns - (tiles - 1) * tile,
+                     col_grid=min(tiles, sms * blocks))
 
 
 def suppress_rows(st_h: uniform.UniformState, st_t0: uniform.UniformState,
@@ -200,7 +240,7 @@ def heads_step(st_h: uniform.UniformState, st_t0: uniform.UniformState,
     dev = blocks.device
     v, n, nb = st_h.segments.shape
     b, t = nb - 1, blocks.shape[0]
-    plan = heads_plan(n, b, t)
+    plan = heads_plan(n, b, t, v, torch.cuda.get_device_properties(dev).multi_processor_count)
     blocks = blocks.contiguous()
     c64 = torch.complex64
     require(blocks, "blocks", (t, v, b), torch.float32, dev)
@@ -234,12 +274,14 @@ def heads_step(st_h: uniform.UniformState, st_t0: uniform.UniformState,
         scratch.data_ptr(), y.data_ptr(), overlap.data_ptr(), pre_h.data_ptr(),
         pre_t.data_ptr(), None if w is None else w.data_ptr(), *ptrs,
         v, b, n, t, st_h.current, cur_new, plan.meta, plan.fwd_tile, plan.fin_tile,
-        torch.cuda.current_stream(dev).cuda_stream)
+        plan.col_tile, plan.col_grid, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fdl_b6_heads")
     st_h.overlap, st_h.pre_multiplied, st_t0.pre_multiplied = overlap, pre_h, pre_t
     st_h.current = st_t0.current = cur_new
     heads_step.launches += 1
+    heads_step.plan = plan
     return y
 
 
 heads_step.launches = 0
+heads_step.plan = None

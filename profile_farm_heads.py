@@ -3,7 +3,7 @@ call, for one checkout.
 
 Run from the repository root on a machine with one NVIDIA card::
 
-    python3 profile_farm_heads.py [--root DIR]
+    python3 profile_farm_heads.py [--root DIR] [--columns-only]
 
 Imports ``fft_convolution_tpu_torch`` from ``DIR`` (default: this
 checkout), builds its kernels and runs ``chip_smoke.py``'s phase 13 head
@@ -14,8 +14,15 @@ version (gated as there); the head path alone in turns, B6 and the
 parent's form (the plain version over cached meta-spectra), event ms and
 device microseconds by CUDA kernel; the farm call in both forms with f32
 and bf16 tails; and the peak memory of a call beside
-``farm2_bytes_per_voice``.  Prints the card's name and power limit, then
-the record as one JSON line.  The bounds come from THIS checkout's
+``farm2_bytes_per_voice``.  First, and alone with ``--columns-only``: the
+column launch ``b6_columns``' device microseconds a call at the benchmark
+cells' head shapes (block 128, n = 256: 1024 voices at T = 512 and 2048,
+2048 voices at T = 512) and at n = 64 and 1024 (column transforms of 256
+and 4096 points) on a random head state, beside its byte floor:
+each (voice, bin) column reads 2n table rows, 2n - 1 history rows and T
+spectra and writes 2n - 1 history rows and T conv rows, 8 bytes each.
+Prints the card's name and power limit, then the record as one JSON
+line.  The bounds come from THIS checkout's
 ``fft_convolution_tpu_torch/utils/roofline.py``, loaded by path before
 ``DIR`` goes on ``sys.path``, so every checkout is divided by one
 yardstick.  To compare two checkouts on one card, run both in one machine
@@ -31,13 +38,69 @@ import sys
 
 import torch
 
-from chip_smoke import card, farm_head_path, farm_irs_on
+from chip_smoke import Card, card, farm_head_path, farm_irs_on, profile_steps
+
+# (voices, n, T): the cells' (block 128, n = 256), then the column transform's
+# other two sizes, M = 256 and 4096
+COLUMN_SHAPES = ((1024, 256, 512), (1024, 256, 2048), (2048, 256, 512), (1024, 64, 512),
+                 (128, 1024, 1024))
+COLUMN_B = 128
+COLUMN_CALLS, COLUMN_WARMUP = 6, 2
+
+
+def column_floor_bytes(v: int, n: int, b: int, t: int) -> int:
+    """The column launch's compulsory bytes: 8 (6n - 2 + 2T) a column."""
+    return v * (b + 1) * 8 * (6 * n - 2 + 2 * t)
+
+
+def column_launch(dev, crd: Card) -> list[dict]:
+    """``b6_columns``' device microseconds a call at each of
+    :data:`COLUMN_SHAPES`, by ``torch.profiler`` over warm ``heads_step``
+    calls on a random head state, beside the byte floor."""
+    from fft_convolution_tpu_torch.models import uniform
+    from fft_convolution_tpu_torch.ops import cuda_farm_heads
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    b = COLUMN_B
+    out = []
+    for v, n, t in COLUMN_SHAPES:
+        def spectra(rows, scale=1.0):
+            x = torch.randn((v, rows, b), generator=gen, device=dev) * scale
+            return torch.fft.rfft(x, n=2 * b)
+
+        def stage():
+            return uniform.UniformState(
+                segments=spectra(n), segments_ir=spectra(n, 0.01),
+                overlap=torch.zeros((v, b), device=dev),
+                input_buffer=torch.zeros((v, b), device=dev),
+                pre_multiplied=torch.zeros((v, b + 1), dtype=torch.complex64, device=dev),
+                current=n // 3, input_fill=0, active_segs=n)
+
+        st_h, st_t0, hist = stage(), stage(), spectra(n - 1)
+        suppress = torch.zeros(v, dtype=torch.bool)
+        xs = torch.randn((2, t, v, b), generator=gen, device=dev)
+        prof = profile_steps(lambda i: cuda_farm_heads.heads_step(
+            st_h, st_t0, xs[i % 2], hist, suppress), COLUMN_CALLS, COLUMN_WARMUP)
+        cols = sum(us for name, us in prof["by_name"].items() if "b6_columns" in name)
+        floor = column_floor_bytes(v, n, b, t) / crd.peaks.hbm_bytes_per_s * 1e6
+        rec = {"voices": v, "n": n, "T": t, "b6_columns_us": cols, "floor_us": floor,
+               "share_of_floor": floor / cols, "b6_us": prof["device_us"],
+               "by_name": prof["by_name"]}
+        print(f"b6_columns at V={v}, T={t}, n={n}, B={b}: {cols!r} device us a call, "
+              f"byte floor {floor!r} us ({floor / cols:.1%} of it); B6 {prof['device_us']!r} "
+              f"us ({crd.smi})", flush=True)
+        out.append(rec)
+        del st_h, st_t0, hist, xs
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve().parent),
                     help="checkout whose fft_convolution_tpu_torch is profiled")
+    ap.add_argument("--columns-only", action="store_true",
+                    help="time the column launch at the cells' shapes and stop")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_farm_heads: no CUDA device")
@@ -48,11 +111,13 @@ def main() -> None:
 
     _build.library()
     dev = torch.device("cuda", 0)
-    gen, irs = farm_irs_on(dev)
     print(crd.smi, flush=True)
-    rec = farm_head_path(dev, irs, gen, crd)
     root = str(pathlib.Path(port.__file__).resolve().parent.parent)
-    print(json.dumps({"root": root, "card": crd.smi, "farm_head_path": rec}), flush=True)
+    rec = {"root": root, "card": crd.smi, "column_launch": column_launch(dev, crd)}
+    if not args.columns_only:
+        gen, irs = farm_irs_on(dev)
+        rec["farm_head_path"] = farm_head_path(dev, irs, gen, crd)
+    print(json.dumps(rec), flush=True)
 
 
 if __name__ == "__main__":

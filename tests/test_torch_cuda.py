@@ -714,6 +714,8 @@ def _b6_exit(st):
     (2, 256, 100_000, (1, 5)),         # n = 32, teams of 16
     (2, 4, 2000, (1, 3)),              # n = 32, one thread a block transform (radix 4)
     (1, 16, 8_000_000, (1,)),          # n = 1024, M = 4096, three radix-16 stages
+    (300, 128, 4 * 48000, (1, 2)),     # 38,700 columns: the persistent grid walks many tiles
+    (1, 128, 60 * 48000, (1, 4)),      # 65 tiles of 2 columns, the last ragged: fewer than the grid
 ])
 def test_b6_kernel_matches_plain(dev, v, b, ir_len, periods):
     """B6 against heads_step_plain over calls of several periods, the state
@@ -748,23 +750,40 @@ def test_b6_kernel_matches_plain(dev, v, b, ir_len, periods):
     assert cuda_farm_heads.heads_step.launches == before + calls
 
 
-def test_b6_replays_bit_exact(dev):
+@pytest.mark.parametrize("v,ir_len", [
+    (4, 4 * 48000),    # n = 64, M = 256: 65 tiles of 8 columns, the last ragged
+    (300, 4 * 48000),  # 4838 tiles: several rounds of the persistent grid
+    (5, 60 * 48000),   # n = 256, M = 1024: 323 tiles of 2 columns, fewer than the grid
+])
+def test_b6_replays_bit_exact(dev, v, ir_len):
     """Fixed-order sums and no atomics: one call from one state twice gives
     bit-equal outputs and exit states (the dp mesh's slab gate relies on it),
-    and a voice's result does not depend on the others (its slab alone)."""
+    and a voice's result does not depend on the others (its slab alone, whose
+    tiles fall on other columns and thread blocks).  The launch ran the
+    plan's persistent grid over tiles of adjacent columns."""
     rng = np.random.default_rng(180)
-    cfg, st = _b6_state(rng, 4, 128, 4 * 48000, dev)
+    cfg, st = _b6_state(rng, v, 128, ir_len, dev)
     n = cfg.head.seg_count
-    x = torch.from_numpy(rng.standard_normal((2 * n, 4, 128)).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((2 * n, v, 128)).astype(np.float32)).to(dev)
     st.suppress[1] = True
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     runs = []
     for _ in range(2):
         s = st.clone()
         runs.append((_b6_call(s, x, None, cuda_farm_heads.heads_step), *_b6_exit(s)))
     assert all(torch.equal(a, b) for a, b in zip(*runs))
-    slab = farm2.voice_slab(st, range(2, 4))
-    y = _b6_call(slab, x[:, 2:].contiguous(), None, cuda_farm_heads.heads_step)
-    assert torch.equal(y, runs[0][0][:, 2:])
+    plan = cuda_farm_heads.heads_step.plan
+    assert plan == cuda_farm_heads.heads_plan(n, 128, 2 * n, v, sms)
+    assert plan.col_tiles == -(-v * 129 // plan.col_tile)
+    assert plan.col_grid == min(plan.col_tiles, sms * plan.col_blocks)
+    lo = v // 2
+    slab = farm2.voice_slab(st, range(lo, v))
+    y = _b6_call(slab, x[:, lo:].contiguous(), None, cuda_farm_heads.heads_step)
+    assert cuda_farm_heads.heads_step.plan.col_tiles == -(-(v - lo) * 129 // plan.col_tile)
+    assert torch.equal(y, runs[0][0][:, lo:])
+    for got, whole in zip(_b6_exit(slab), runs[0][1:]):
+        if whole.numel():
+            assert torch.equal(got, whole[lo:])
 
 
 def test_b6_rejects_bad_operands(dev):

@@ -661,6 +661,53 @@ def test_heads_plan_refuses_what_the_kernel_cannot_run():
         cuda_farm_heads.heads_plan(16, 2, 16)
 
 
+@pytest.mark.parametrize("n,b,t,v,sms,cols", [
+    (256, 128, 512, 1024, 132, (4, 256, 1, 33024, 4, 132)),   # farm60.dev2
+    (256, 128, 2048, 1024, 132, (4, 256, 1, 33024, 4, 132)),  # farm60.dev8: same grid
+    (256, 128, 512, 2048, 132, (4, 256, 1, 66048, 4, 132)),   # farm60bf16.dev2
+    (256, 128, 512, 1, 132, (4, 256, 1, 33, 1, 33)),          # one voice: 33 blocks, last tile 1
+    (64, 128, 64, 300, 132, (8, 128, 3, 4838, 4, 396)),       # M = 256: tiles of 8
+    (16, 64, 16, 3, 132, (8, 128, 3, 25, 3, 25)),             # 195 columns, ragged
+    (1024, 16, 2048, 1, 132, (1, 256, 1, 17, 1, 17)),         # M = 4096: one team a block
+    (1, 2048, 16, 2, 114, (8, 128, 3, 513, 2, 342)),          # a card of 114 SMs
+])
+def test_heads_plan_column_form(n, b, t, v, sms, cols):
+    """B6's column launch from (n, B, T, V) and the card's SMs: G adjacent
+    (voice, bin) columns a tile (8, 4, 1 at M = 256, 1024, 4096), a team of
+    M/16 threads a column, the thread blocks an SM holds at any n of that M,
+    the V (B+1) columns in tiles with a ragged last one, and a persistent
+    grid of at most one thread block a tile."""
+    got = cuda_farm_heads.heads_plan(n, b, t, v, sms)
+    assert (got.col_tile, got.col_threads, got.col_blocks, got.col_tiles, got.col_last,
+            got.col_grid) == cols
+    assert (got.col_tiles - 1) * got.col_tile + got.col_last == v * (b + 1)
+    assert 1 <= got.col_last <= got.col_tile
+
+
+def test_heads_plan_column_blocks_fit_every_n():
+    """For every n a meta size takes, a column thread block's shared memory
+    fits the opt-in limit and the plan's blocks an SM fit the SM's shared
+    memory and 2048 threads; the n = M/4 end sets the count."""
+    for meta in cuda_farm_heads.METAS:
+        plan = cuda_farm_heads.heads_plan(meta // 4, 128, meta // 4)
+        assert plan.meta == meta
+        for n in range(1, meta // 4 + 1):
+            smem = cuda_farm_heads.column_smem(meta, n)
+            assert smem <= cuda_farm_heads.MAX_SMEM
+            assert plan.col_blocks * (smem + cuda_farm_heads.SMEM_RESERVED) \
+                <= cuda_farm_heads.SMEM_PER_SM
+            assert plan.col_blocks * plan.col_threads <= 2048
+        top = cuda_farm_heads.column_smem(meta, meta // 4) + cuda_farm_heads.SMEM_RESERVED
+        assert (plan.col_blocks + 1) * top > cuda_farm_heads.SMEM_PER_SM
+
+
+def test_heads_plan_refuses_no_voices_or_sms():
+    with pytest.raises(ValueError, match="at least one voice"):
+        cuda_farm_heads.heads_plan(16, 64, 16, 0)
+    with pytest.raises(ValueError, match="one SM"):
+        cuda_farm_heads.heads_plan(16, 64, 16, 4, 0)
+
+
 def test_farm2_bytes_per_voice_from_shapes():
     """The capacity model from the port's shapes (block 64, 9000 taps: tail
     block 1024, n = 16, N = 8): the state, no head meta-spectra, plus the
