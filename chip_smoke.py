@@ -74,17 +74,15 @@ printed with the card's name and power limit and gated <= 1 (a share above
     8-period call from a farm's state with the big tail's delay line, with
     no voice and with three voices suppressed: the output and every exit
     field (1e-4) and a replay from the same state bit-equal; the head path
-    alone in turns (the plain version over cached meta-spectra, the
-    parent's form, then B6), event ms and a ``torch.profiler`` window each
-    (B6 gated to its three kernels once a call) and their shares of
-    ``roofline.farm_heads_cost`` (gated); the 8-period farm call in the
-    kernel form and in the parent's form (``farm2_stream`` with the plain
-    head path over cached meta-spectra and B5), f32 and bf16 tails: events
-    in turns, device microseconds split into B6, B5, B7 and the rest (B7's
-    beside its bound, ``roofline.farm_tail_dft_cost``), and the
+    alone in turns (the plain version, then B6), event ms and a
+    ``torch.profiler`` window each (B6 gated to its three kernels once a
+    call) and their shares of ``roofline.farm_heads_cost`` (gated); the
+    8-period farm call, f32 and bf16 tails: event ms, device microseconds
+    split into B6, B5, B7 and the rest (B7's beside its bound,
+    ``roofline.farm_tail_dft_cost``), and the
     peak memory of one call (the state held plus
     ``torch.cuda.max_memory_allocated`` over the call) beside
-    ``farm2_bytes_per_voice`` x 128, gated within 2 % for the kernel form;
+    ``farm2_bytes_per_voice`` x 128, gated within 2 %;
     then one call of the most blocks a call takes (4096: the length
     ``farm2_init``'s guard prices), its peak gated within 2 % of the model
     at that length.  A ``{"farm_head_path": ...}`` line records it;
@@ -203,7 +201,7 @@ module's) and its ``share`` of the device time (B5: of the step alone;
 ``library_ms`` (null: no single PyTorch call computes a step), B5's and
 B5p's ``dp_mesh`` (phase 17: ranks, launches a rank, error, call ms a
 rank), B6's head path alone (phase 13: ``ms`` B6, ``plain_ms`` the plain
-version over cached meta-spectra, its profile and share), B7's two
+version, its profile and share), B7's two
 launches (phase 14: ``device_us`` and ``share`` beside ``plain_device_us``
 and ``plain_share``, the plain forms on cuFFT), and for B1-B4
 the profile's ``device_us``, ``device_us_by_kernel`` and
@@ -214,6 +212,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import importlib.util
@@ -224,6 +223,7 @@ import subprocess
 import sys
 import time
 import types
+from unittest import mock
 
 import numpy as np
 import torch
@@ -353,8 +353,8 @@ class Counts:
 
 
 def kernel_counts() -> Counts:
-    """Every kernel wrapper of the port, B1 to B7 (B7f and B7i: B7's forward
-    and inverse launches)."""
+    """Every kernel wrapper of the port, B1 to B7 (B5: both its forms; B7f and
+    B7i: B7's forward and inverse launches)."""
     from fft_convolution_tpu_torch.ops import (cuda_crossfade, cuda_engine, cuda_farm_heads,
                                                cuda_farm_mac, cuda_farm_tail, cuda_stream,
                                                cuda_two_stage)
@@ -362,9 +362,8 @@ def kernel_counts() -> Counts:
     return Counts(B1=cuda_engine.block_step, B1p=cuda_engine.block_step_packed,
                   B2=cuda_two_stage.block_step, B3=cuda_crossfade.block_step,
                   B4=cuda_stream.stream, B4p=cuda_stream.stream_packed,
-                  B5=cuda_farm_mac.phased_step, B5p=cuda_farm_mac.phased_step_packed,
-                  B6=cuda_farm_heads.heads_step, B7f=cuda_farm_tail.tail_forward,
-                  B7i=cuda_farm_tail.tail_inverse)
+                  B5=cuda_farm_mac.phased_step, B6=cuda_farm_heads.heads_step,
+                  B7f=cuda_farm_tail.tail_forward, B7i=cuda_farm_tail.tail_inverse)
 
 
 def core_calls(since: tuple | None = None) -> tuple:
@@ -1198,18 +1197,28 @@ def host_runtime(dev, counts: Counts, ir: np.ndarray, ir_b: np.ndarray, x_host: 
     return record
 
 
-def plain_farm(farm, transforms: bool = True):
-    """A clone of ``farm`` whose big tail and head path run the plain
-    versions of kernels B5 and B6 on the card, and with ``transforms`` the
-    big tail's transforms the plain versions of B7's."""
-    from fft_convolution_tpu_torch.ops import cuda_farm_heads, cuda_farm_mac, cuda_farm_tail
+class PlainFarm:
+    """A clone of a farm whose ``process`` runs kernels B5 and B6 and, with
+    ``transforms``, B7's two launches as their plain versions: the ``ops``
+    functions patched for the call.  Every other attribute is the clone's."""
 
-    twin = farm.clone()
-    twin._step = cuda_farm_mac.phased_step_plain
-    twin._heads = cuda_farm_heads.heads_step_plain
-    if transforms:
-        twin._tail_dft = (cuda_farm_tail.tail_forward_plain, cuda_farm_tail.tail_inverse_plain)
-    return twin
+    def __init__(self, farm, transforms: bool = True):
+        from fft_convolution_tpu_torch.ops import cuda_farm_heads, cuda_farm_mac, cuda_farm_tail
+
+        self.farm = farm.clone()
+        self.swaps = [(cuda_farm_mac, "phased_step"), (cuda_farm_heads, "heads_step")]
+        if transforms:
+            self.swaps += [(cuda_farm_tail, "tail_forward"), (cuda_farm_tail, "tail_inverse")]
+
+    def process(self, x):
+        with contextlib.ExitStack() as stack:
+            for module, name in self.swaps:
+                plain = getattr(module, f"{name}_plain")
+                stack.enter_context(mock.patch.object(module, name, plain))
+            return self.farm.process(x)
+
+    def __getattr__(self, name):
+        return getattr(self.farm, name)
 
 
 def head_fields(state) -> dict:
@@ -1266,9 +1275,8 @@ def by_kind(by_name: dict) -> dict:
 
 def farm_head_path(dev, farm_irs: torch.Tensor, gen: torch.Generator, crd: Card) -> dict:
     """Phase 13's head path (module docstring): kernel B6 against its plain
-    version at the farm's shape, alone and inside the farm call, against the
-    parent's form (the plain head path over cached meta-spectra, B5 for the
-    tail).  Returns a record."""
+    version at the farm's shape, alone, then the farm call.  Returns a
+    record."""
     from fft_convolution_tpu_torch import ReverbFarm
     from fft_convolution_tpu_torch.ops import cuda_farm_heads
     from fft_convolution_tpu_torch.parallel import farm2
@@ -1286,8 +1294,6 @@ def farm_head_path(dev, farm_irs: torch.Tensor, gen: torch.Generator, crd: Card)
     rows = torch.randn((HEAD_PERIODS, FARM_VOICES, cfg.tail_block), generator=gen,
                        device=dev) * FARM_SCALE
     delay = (st.tail_precalc, st.tail_output, rows)
-    # the parent's form: the plain version over cached meta-spectra
-    parent = functools.partial(plain, khat=farm2.farm2_head_khat(cfg, st, t))
 
     def call(state, x, step):
         return step(state.head, state.tail0, x, state.hist, state.suppress, delay)
@@ -1313,13 +1319,13 @@ def farm_head_path(dev, farm_irs: torch.Tensor, gen: torch.Generator, crd: Card)
             fail(f"{label}: a replay from the same state is not bit-equal")
         print(f"{label}: replay bit-equal", flush=True)
     rec["max_abs_err"] = err
-    # the head path alone: events in turns (plain over cached meta-spectra, the
-    # parent's form; kernel; kernel; plain) and a profile of each
+    # the head path alone: events in turns (plain, kernel, kernel, plain) and a
+    # profile of each
     cost = rl.farm_heads_cost(cfg, FARM_VOICES, t)
     ev = {"kernel": [], "plain": []}
     for kind in ("plain", "kernel", "kernel", "plain"):
         s = st.clone()
-        step = kernel if kind == "kernel" else parent
+        step = kernel if kind == "kernel" else plain
         for i in range(HEAD_WARMUP):
             call(s, xs[i], step)
         torch.cuda.synchronize()
@@ -1329,11 +1335,10 @@ def farm_head_path(dev, farm_irs: torch.Tensor, gen: torch.Generator, crd: Card)
     prof = {}
     for kind in ("kernel", "plain"):
         s = st.clone()
-        step = kernel if kind == "kernel" else parent
+        step = kernel if kind == "kernel" else plain
         prof[kind] = profile_steps(lambda i: call(s, xs[i % n_calls], step), HEAD_PROFILED,
                                    HEAD_WARMUP)
-        form = "B6" if kind == "kernel" else "plain over cached meta-spectra: the parent form"
-        print(f"head path alone, {kind} ({form}): event medians {ev[kind]!r} ms, "
+        print(f"head path alone, {kind}: event medians {ev[kind]!r} ms, "
               f"{prof[kind]['device_us']!r} device us and "
               f"{prof[kind]['cuda_launches_per_step']!r} CUDA kernels a call (by kernel: "
               f"{prof[kind]['by_name']!r})", flush=True)
@@ -1344,63 +1349,53 @@ def farm_head_path(dev, farm_irs: torch.Tensor, gen: torch.Generator, crd: Card)
              "three launches of its three kernels")
     bound = shares("B6 head path alone", cost, crd, device=kp["device_us"] / 1e6,
                    event=min(ev["kernel"]) / 1e3)
-    shares("plain head path alone (the parent form)", cost, crd,
+    shares("plain head path alone", cost, crd,
            device=prof["plain"]["device_us"] / 1e6, event=min(ev["plain"]) / 1e3)
     rec.update(ms=min(ev["kernel"]), plain_ms=min(ev["plain"]), event_ms=ev,
                device_us=kp["device_us"], device_us_by_kernel=kp["by_name"],
                cuda_launches_per_call=kp["cuda_launches_per_step"],
                plain_device_us=prof["plain"]["device_us"], bound=bound)
-    del f, st, parent, delay, rows
+    del f, st, delay, rows
     torch.cuda.empty_cache()
 
-    # the farm call in both forms, f32 and bf16: events in turns, a profile
-    # split by kernel, and the peak memory of one call beside the model
+    # the farm call, f32 and bf16: events, a profile split by kernel, and the
+    # peak memory of one call beside the model
     for dtype, tag in ((torch.float32, "B5"), (torch.bfloat16, "B5p")):
         item = 8 if dtype == torch.float32 else 4
         fc = ReverbFarm(farm_irs, BLOCK, farm_irs.shape[1], device=dev, tail_dtype=dtype)
         fc.process(xs[0])
-        kh = farm2.farm2_head_khat(fc.cfg, fc.state, t)
-        parent = functools.partial(plain, khat=kh)
-        forms = {"kernel": lambda x: fc.process(x),
-                 "parent": lambda x: farm2.farm2_stream(fc.cfg, fc.state, x, fc._step,
-                                                        heads=parent)}
-        fev = {"kernel": [], "parent": []}
-        for kind in ("parent", "kernel", "kernel", "parent"):
+        fev = []
+        for _ in range(2):
             for i in range(HEAD_WARMUP):
-                forms[kind](xs[i])
+                fc.process(xs[i])
             torch.cuda.synchronize()
-            fev[kind].append(statistics.median(event_ms(
-                [lambda i=i: forms[kind](xs[i]) for i in range(HEAD_WARMUP, n_calls)])))
+            fev.append(statistics.median(event_ms(
+                [lambda i=i: fc.process(xs[i]) for i in range(HEAD_WARMUP, n_calls)])))
         model = farm2.farm2_bytes_per_voice(BLOCK, farm_irs.shape[1], t, item) * FARM_VOICES
         state_b = state_nbytes(fc.state)
+        pr = profile_steps(lambda i: fc.process(xs[i % n_calls]), HEAD_PROFILED, HEAD_WARMUP)
+        split = by_kind(pr["by_name"])
+        peak = state_b + peak_bytes(lambda: fc.process(xs[1]))
         out = {"event_ms": fev, "model_bytes": model, "state_bytes": state_b,
-               "khat_bytes": state_nbytes(kh)}
-        for kind in ("kernel", "parent"):
-            pr = profile_steps(lambda i: forms[kind](xs[i % n_calls]), HEAD_PROFILED,
-                               HEAD_WARMUP)
-            split = by_kind(pr["by_name"])
-            held = state_b + (out["khat_bytes"] if kind == "parent" else 0)
-            peak = held + peak_bytes(lambda: forms[kind](xs[1]))
-            out[kind] = {"device_us": pr["device_us"], "by_kind": split,
-                         "cuda_kernels": pr["cuda_launches_per_step"],
-                         "by_name": pr["by_name"], "peak_bytes": peak}
-            if kind == "kernel" and not abs(peak / model - 1) <= MODEL_TOL:
-                fail(f"farm {tag}: measured peak {peak} bytes, farm2_bytes_per_voice x "
-                     f"{FARM_VOICES} = {model}: off by more than {MODEL_TOL:.0%}")
-            print(f"farm {tag} {HEAD_PERIODS}-period call, {kind} form: event medians "
-                  f"{fev[kind]!r} ms; {pr['device_us']!r} device us in "
-                  f"{pr['cuda_launches_per_step']!r} CUDA kernels ({split!r}); peak "
-                  f"{peak / 1e9!r} GB = {peak / FARM_VOICES / 1e6!r} MB a voice (state "
-                  f"{held / 1e9!r} GB and the call's transients; the model "
-                  f"farm2_bytes_per_voice x {FARM_VOICES}: {model / 1e9!r} GB, "
-                  f"measured / model {peak / model!r}) ({crd.smi})", flush=True)
+               "kernel": {"device_us": pr["device_us"], "by_kind": split,
+                          "cuda_kernels": pr["cuda_launches_per_step"],
+                          "by_name": pr["by_name"], "peak_bytes": peak}}
+        if not abs(peak / model - 1) <= MODEL_TOL:
+            fail(f"farm {tag}: measured peak {peak} bytes, farm2_bytes_per_voice x "
+                 f"{FARM_VOICES} = {model}: off by more than {MODEL_TOL:.0%}")
+        print(f"farm {tag} {HEAD_PERIODS}-period call: event medians {fev!r} ms; "
+              f"{pr['device_us']!r} device us in {pr['cuda_launches_per_step']!r} CUDA "
+              f"kernels ({split!r}); peak {peak / 1e9!r} GB = {peak / FARM_VOICES / 1e6!r} MB "
+              f"a voice (state {state_b / 1e9!r} GB and the call's transients; the model "
+              f"farm2_bytes_per_voice x {FARM_VOICES}: {model / 1e9!r} GB, measured / model "
+              f"{peak / model!r}) ({crd.smi})", flush=True)
         out["b7_bound"] = shares(f"farm {tag} {HEAD_PERIODS}-period call: B7's two launches",
                                  rl.farm_tail_dft_cost(fc.cfg, FARM_VOICES, t), crd,
                                  device=out["kernel"]["by_kind"]["B7"] / 1e6)
         out["call_bound"] = shares(f"farm {tag} {HEAD_PERIODS}-period call (kernel form, "
                                    "this phase)", rl.farm_cost(fc.cfg, FARM_VOICES, t, item),
                                    crd, device=out["kernel"]["device_us"] / 1e6,
-                                   event=min(fev["kernel"]) / 1e3)
+                                   event=min(fev) / 1e3)
         # the guard's own shape: one call of the most blocks a call takes, the
         # length farm2_init's guard prices (its own generator: later phases'
         # draws stay as they were)
@@ -1423,7 +1418,7 @@ def farm_head_path(dev, farm_irs: torch.Tensor, gen: torch.Generator, crd: Card)
                  f"farm2_bytes_per_voice x {FARM_VOICES} = {model_g}: off by more than "
                  f"{MODEL_TOL:.0%}")
         rec[tag] = out
-        del fc, kh, forms, xg
+        del fc, xg
         torch.cuda.empty_cache()
     return rec
 
@@ -1651,7 +1646,7 @@ def mesh_phase(dev, ir: np.ndarray, ir_b: np.ndarray, x_host: np.ndarray,
             lo, hi = r["voices"]
             print(f"rank {rank} {tag} farm, voices {lo}-{hi - 1} launches: {r['launches']}",
                   flush=True)
-            if r["launches"] != {k: (DP_CALLS if k in (tag, "B6", "B7f", "B7i") else 0)
+            if r["launches"] != {k: (DP_CALLS if k in ("B5", "B6", "B7f", "B7i") else 0)
                                  for k in r["launches"]}:
                 fail(f"rank {rank}: {tag} farm launch counts {r['launches']}, not one "
                      f"{tag}, one B6 and one of each B7 launch a call")
@@ -1679,7 +1674,7 @@ def mesh_phase(dev, ir: np.ndarray, ir_b: np.ndarray, x_host: np.ndarray,
         two_stage={"max_abs_err": ts_err,
                    "wall_ms_per_call": [r["ts"]["wall_ms_per_call"] for r in ranks]},
         **{tag: {"max_abs_err": dp_err[tag],
-                 "launches_per_rank": [r[tag]["launches"][tag] for r in ranks],
+                 "launches_per_rank": [r[tag]["launches"]["B5"] for r in ranks],
                  "call_ms_per_rank": [statistics.median(r[tag]["call_ms"]) for r in ranks]}
            for tag in ("B5", "B5p")})
     return record
@@ -1938,7 +1933,7 @@ def main() -> None:
     farm_x = torch.randn((sum(FARM_PERIODS) * p, FARM_VOICES, BLOCK), generator=gen,
                          device=dev)
     calls = list(farm_x.split([k * p for k in FARM_PERIODS]))
-    farm_plain = plain_farm(farm)
+    farm_plain = PlainFarm(farm)
 
     def run_calls(f, xs_):
         return torch.cat([f.process(xc) for xc in xs_])
@@ -2002,9 +1997,9 @@ def main() -> None:
     # two FFTs round to neighbouring bf16 values in the ring and carry (the
     # 5e-3 gate against the f32 farm covers that); B7 is held to its plain
     # version in phases 10, 11 and 14
-    farm_bf_plain = plain_farm(farm_bf, transforms=False)
+    farm_bf_plain = PlainFarm(farm_bf, transforms=False)
     y_bf5 = counts.drive("B5p/B6 bf16 path", lambda: run_calls(farm_bf, calls),
-                         {"B5p": len(calls), "B6": len(calls), "B7f": len(calls),
+                         {"B5": len(calls), "B6": len(calls), "B7f": len(calls),
                           "B7i": len(calls)})
     launches["B5p"] = len(calls)
     launches["B6"] += len(calls)
@@ -2027,7 +2022,7 @@ def main() -> None:
     for dtype, tag in ((torch.float32, "B5"), (torch.bfloat16, "B5p")):
         item = rl.C64 if dtype == torch.float32 else rl.BF16_PAIR
         f = ReverbFarm(farm_irs, BLOCK, farm_irs.shape[1], device=dev, tail_dtype=dtype)
-        f_plain = plain_farm(f)
+        f_plain = PlainFarm(f)
         for periods, (warm, timed) in FARM_TIMED.items():
             xt = torch.randn((warm + timed, periods * p, FARM_VOICES, BLOCK), generator=gen,
                              device=dev)
@@ -2049,7 +2044,8 @@ def main() -> None:
                             generator=gen, device=dev)
         cost = rl.farm_tail_step_cost(cfg, FARM_VOICES, 8, item)
         moved = cost.bytes
-        for kind, step in (("kernel", f._step), ("plain", cuda_farm_mac.phased_step_plain)):
+        for kind, step in (("kernel", cuda_farm_mac.phased_step),
+                           ("plain", cuda_farm_mac.phased_step_plain)):
             reps = 10 if kind == "kernel" else 3
             step(tail.ring, tail.table, specs, 0)
             torch.cuda.synchronize()
@@ -2188,7 +2184,7 @@ def main() -> None:
     kernels.append({
         "name": f"B6 farm head+tail0 path ({FARM_VOICES} voices x {FARM_SECONDS} s; ms per "
                 f"{HEAD_PERIODS}-period call of the head path alone; plain_ms: the plain "
-                "version over cached meta-spectra, the parent's form)",
+                "version)",
         "route": "cuda", "source": "fft_convolution_tpu_torch/csrc/b6_farm_heads.cu",
         "replaces": "fft_convolution_tpu/parallel/farm2.py:931",
         "launches": launches["B6"], "max_abs_err": b6_err, "ms": heads["ms"],

@@ -32,17 +32,8 @@ import numpy as np
 import torch
 
 from .models import two_stage
-from .ops import cuda_farm_heads, cuda_farm_mac, cuda_farm_tail
 from .parallel import farm2
 from .utils.profiling import annotate
-
-# The JAX package's transform tiers; they count TPU matrix-unit passes
-PRECISIONS = ("highest", "high", "default", "bf16")
-
-
-def _check_precision(name: str, what: str) -> None:
-    if name != "auto" and name not in PRECISIONS:
-        raise ValueError(f"{what} {name!r} not one of {sorted(PRECISIONS)} (or 'auto')")
 
 
 class ReverbFarm:
@@ -58,22 +49,6 @@ class ReverbFarm:
     tail_dtype : ``torch.float32`` (default) or ``torch.bfloat16``: bf16
         pairs for the big tail's ring and table, half the bytes kernel B5
         reads, with ~1e-3 relative error on the tail contribution.
-    tail_mac : ``"auto"`` only: kernels B5, B6 and B7 for a farm on a CUDA
-        device, their plain PyTorch versions on the CPU.  The big tail's
-        step is the attribute ``_step``, the head path ``_heads`` and the
-        big tail's transforms ``_tail_dft``; setting them to
-        ``cuda_farm_mac.phased_step_plain``,
-        ``cuda_farm_heads.heads_step_plain`` and ``(cuda_farm_tail.
-        tail_forward_plain, cuda_farm_tail.tail_inverse_plain)`` runs the
-        plain versions on the card.  B6 takes ``4 <= block_size <= 2048``
-        and at most 1024 head segments (``tail_block / block_size``), B7
-        tail blocks of 64 to 131072 samples; a card farm with a big tail of
-        another shape raises ``ValueError`` at construction.
-    dft_precision, tail_dft_precision : accepted and checked for the JAX
-        package's names (``"auto"``, ``"highest"``, ``"high"``,
-        ``"default"``, ``"bf16"``).  Those tiers count a TPU's matrix-unit
-        passes; here every transform is a float32 ``torch.fft`` whatever
-        the name.
     mesh : a :class:`~torch.distributed.device_mesh.DeviceMesh` with a
         ``"dp"`` dimension whose size divides ``V`` (``parallel.mesh.
         make_mesh``), or None for one device.  With a mesh, this rank keeps
@@ -84,17 +59,18 @@ class ReverbFarm:
     device : where the farm lives.  None (the default) means the card:
         where ``irs`` is if it is a CUDA tensor, else ``"cuda"``, for a
         numpy array too.  Pass ``device="cpu"`` for the CPU.
+
+    A farm on a CUDA device runs kernels B5 (its bf16 form for a bf16
+    tail), B6 and B7 (:func:`.parallel.farm2.farm2_stream`); on the CPU
+    their plain PyTorch versions.  B6 takes ``4 <= block_size <= 2048`` and
+    at most 1024 head segments (``tail_block / block_size``), B7 tail
+    blocks of 64 to 131072 samples; a card farm with a big tail of another
+    shape raises ``ValueError`` at construction.
     """
 
     def __init__(self, irs, block_size: int, max_response_length: int, *,
-                 tail_dtype: torch.dtype = torch.float32, tail_mac: str = "auto",
-                 tail_dft_precision: str = "auto", dft_precision: str = "auto",
-                 mesh=None, hbm_budget_bytes="auto", device=None):
-        if tail_mac != "auto":
-            raise ValueError(f"tail_mac must be 'auto' (kernel B5 on a CUDA device, its "
-                             f"plain version on the CPU), got {tail_mac!r}")
-        _check_precision(dft_precision, "dft_precision")
-        _check_precision(tail_dft_precision, "tail_dft_precision")
+                 tail_dtype: torch.dtype = torch.float32, mesh=None,
+                 hbm_budget_bytes="auto", device=None):
         if device is None:
             on_card = isinstance(irs, torch.Tensor) and irs.is_cuda
             device = irs.device if on_card else "cuda"
@@ -119,10 +95,6 @@ class ReverbFarm:
         self.max_blocks_per_call = (
             None if self.cfg.tail is None
             else farm2.max_blocks_per_call(self.cfg.period, self.cfg.tail.seg_count))
-        self._step = (cuda_farm_mac.phased_step_packed if tail_dtype == torch.bfloat16
-                      else cuda_farm_mac.phased_step)
-        self._heads = cuda_farm_heads.heads_step
-        self._tail_dft = (cuda_farm_tail.tail_forward, cuda_farm_tail.tail_inverse)
         # the short-IR farm's stage meta-spectra per call length T
         # (two_stage.small_stream_khats): input-independent between IR
         # updates.  The big-tail farm caches none: B6 reads the raw tables.
@@ -174,9 +146,8 @@ class ReverbFarm:
             if self.cfg.tail is None:
                 if t not in self._khat_cache:
                     self._khat_cache[t] = two_stage.small_stream_khats(self.cfg, self.state, t)
-                return farm2.farm2_stream(self.cfg, self.state, x, head_khat=self._khat_cache[t])
-            return farm2.farm2_stream(self.cfg, self.state, x, self._step, heads=self._heads,
-                                      tail_dft=self._tail_dft)
+                return farm2.farm2_stream(self.cfg, self.state, x, self._khat_cache[t])
+            return farm2.farm2_stream(self.cfg, self.state, x)
 
     def _check_irs(self, new_irs, count: int) -> torch.Tensor:
         new_irs = torch.as_tensor(new_irs, dtype=torch.float32, device=self.device)
@@ -237,21 +208,7 @@ class ReverbFarm:
     def reset(self) -> None:
         """Clear all input state; keep the IR tables (``FFTConvolver::reset``
         semantics, ``src/fft_convolver.rs:296``)."""
-        st = self.state
-        for stage in (st.head, st.tail0):
-            for buf in (stage.segments, stage.overlap, stage.input_buffer,
-                        stage.pre_multiplied):
-                buf.zero_()
-            stage.current = stage.input_fill = 0
-        if self.cfg.tail is None:
-            for k in two_stage._BUFFERS:
-                getattr(st, k).zero_()
-            return
-        for buf in (st.tail.ring, st.tail.overlap, st.tail.pre, st.hist, st.tail_output,
-                    st.tail_precalc):
-            buf.zero_()
-        st.tail.q = 0
-        st.suppress.fill_(False)
+        farm2.farm2_reset(self.cfg, self.state)
 
     # --- Clone surface (reference `Clone`) ---------------------------------
     def snapshot(self) -> farm2.Farm2State:

@@ -11,11 +11,9 @@ single-device engine on the same inputs (1e-5), on tiny shapes (block 8):
   sharded two-stage engine;
 * on a 1-D ``"dp"`` mesh of all ``n`` ranks: the two-stage farm (each
   rank's ``voice_slab`` through ``farm2_stream``), then ``farm2_update_voices``
-  of one voice on the sharded farm, the bf16 tail, and the cached head
-  meta-spectra cut to the rank's voices (through the plain head path, which
-  takes them; kernel B6 reads the raw tables).  Each rank steps its own
-  voices through kernels B5 (B5p for bf16) and B6 on the card, their plain
-  versions on the CPU.
+  of one voice on the sharded farm, and the bf16 tail.  Each rank steps its
+  own voices through kernels B5 (B5p for bf16), B6 and B7 on the card, their
+  plain versions on the CPU.
 
 Run: ``python -m fft_convolution_tpu_torch.examples.dryrun_multichip
 [--ranks 4] [--device cuda|cpu]`` (the card by default, every rank on
@@ -25,13 +23,11 @@ Run: ``python -m fft_convolution_tpu_torch.examples.dryrun_multichip
 from __future__ import annotations
 
 import argparse
-import functools
 
 import numpy as np
 import torch
 
 from ..models import two_stage, uniform
-from ..ops import cuda_farm_heads, cuda_farm_mac
 from ..parallel import farm, farm2, partition, two_stage_sp
 from ..parallel.mesh import make_mesh, mesh_device, run_ranks, voice_range
 
@@ -96,8 +92,6 @@ def _rank(rank: int, world: int, device: str) -> dict:
     lv2 = voice_range(flat, vf)
     own = slice(lv2.start, lv2.stop)
     xf2 = randn(2 * f2cfg.period, vf, B, scale=0.5)
-    khat = farm2.farm2_head_khat(f2cfg, f2state, xf2.shape[0])
-    fresh = farm2.voice_slab(f2state, lv2)
     ref = f2state.clone()
     sstate = farm2.voice_slab(f2state, lv2)
     y_ref = farm2.farm2_stream(f2cfg, ref, xf2)
@@ -112,16 +106,9 @@ def _rank(rank: int, world: int, device: str) -> dict:
         farm2.farm2_stream(f2cfg, ref, xf2)[:, own])
     # the bf16 tail
     b2cfg, b2state = farm2.farm2_init(irs2, B, ir_len2, tail_dtype=torch.bfloat16)
-    packed = cuda_farm_mac.phased_step_packed
     sb = farm2.voice_slab(b2state, lv2)
-    errs["dp farm2 bf16"] = _err(farm2.farm2_stream(b2cfg, sb, xf2[:, own], packed),
-                                 farm2.farm2_stream(b2cfg, b2state, xf2, packed)[:, own])
-    # the head meta-spectra of the whole farm, cut to the rank's voices
-    errs["dp farm2 head khat"] = _err(
-        farm2.farm2_stream(f2cfg, fresh, xf2[:, own],
-                           heads=functools.partial(cuda_farm_heads.heads_step_plain,
-                                                   khat=khat[own])),
-        y_ref[:, own])
+    errs["dp farm2 bf16"] = _err(farm2.farm2_stream(b2cfg, sb, xf2[:, own]),
+                                 farm2.farm2_stream(b2cfg, b2state, xf2)[:, own])
     return errs
 
 

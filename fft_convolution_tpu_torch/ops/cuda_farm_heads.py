@@ -33,11 +33,9 @@ tile's rows loaded while the tile before it transforms; the inverse
 transforms; shaped by :func:`heads_plan`, a pure function the CPU tests
 cover) and takes the plain PyTorch version :func:`heads_step_plain` only
 for CPU tensors; it never falls back.  ``heads_step.launches`` counts its
-calls and ``heads_step.plan`` is the last launch's plan.  The plain
-version takes an optional ``khat`` (the table's cached meta-spectra,
-:func:`..parallel.farm2.farm2_head_khat`; a caller binds it with
-``functools.partial``); the kernel transforms the raw table column by
-column, in registers, and takes none.
+calls and ``heads_step.plan`` is the last launch's plan.  Neither caches
+the table's meta-spectra: the kernel transforms the raw table column by
+column, in registers.
 
 Limits of the kernel (:func:`heads_plan`): ``4 <= B <= 2048`` and at most
 1024 head segments; :func:`..parallel.farm2.farm2_init` checks them when it
@@ -55,7 +53,7 @@ from ..models import uniform
 from ..models.two_stage import combined_head_kernel
 from ..utils.profiling import annotate
 from .cuda_engine import check_block, require
-from .fft import causal_conv_time, irdft_block, rdft_block, twiddles
+from .fft import cached_twiddles, causal_conv_time, irdft_block, rdft_block
 
 METAS = (256, 1024, 4096)  # the column transform's sizes (radix-16 stages and one radix-4)
 MAX_TILE = 16      # blocks a forward or finishing thread block, at most
@@ -192,11 +190,10 @@ def _add_delay(y: torch.Tensor, delay: tuple, n: int) -> None:
 
 def heads_step_plain(st_h: uniform.UniformState, st_t0: uniform.UniformState,
                      blocks: torch.Tensor, hist: torch.Tensor, suppress: torch.Tensor,
-                     delay: tuple | None = None, khat: torch.Tensor | None = None
-                     ) -> torch.Tensor:
+                     delay: tuple | None = None) -> torch.Tensor:
     """The plain PyTorch version of the call, on any device: one causal
     convolution along the block axis (:func:`..ops.fft.causal_conv_time`)
-    against the combined table, or against its meta-spectra ``khat``."""
+    against the combined table."""
     n, b = st_h.segments.shape[-2], st_h.overlap.shape[-1]
     t = blocks.shape[0]
     w = None
@@ -206,7 +203,7 @@ def heads_step_plain(st_h: uniform.UniformState, st_t0: uniform.UniformState,
     specs = rdft_block(blocks.transpose(0, 1), 2 * b)                # [V, T, B+1]
     ring = uniform.ring_window(st_h.segments, st_h.current)          # blocks -n..-1
     ext = torch.cat([hist, ring, specs], dim=1)                      # [V, 2n-1+T, B+1]
-    conv = causal_conv_time(ext, combined_head_kernel(st_h, st_t0), t, kern_hat=khat)
+    conv = causal_conv_time(ext, combined_head_kernel(st_h, st_t0), t)
     if w is not None:
         conv[:, :n] -= w
     outs = irdft_block(conv, 2 * b)                                  # [V, T, 2B]
@@ -216,18 +213,6 @@ def heads_step_plain(st_h: uniform.UniformState, st_t0: uniform.UniformState,
     if delay is not None:
         _add_delay(y, delay, n)
     return y
-
-
-_TWIDDLES: dict = {}
-
-
-def _twiddles(size: int, device: torch.device) -> torch.Tensor:
-    """The twiddle table for ``size``-point real transforms, kept on the card
-    (one copy to the card per size and device)."""
-    key = (size, device)
-    if key not in _TWIDDLES:
-        _TWIDDLES[key] = twiddles(size, device)
-    return _TWIDDLES[key]
 
 
 def heads_step(st_h: uniform.UniformState, st_t0: uniform.UniformState,
@@ -270,7 +255,8 @@ def heads_step(st_h: uniform.UniformState, st_t0: uniform.UniformState,
     err = _build.kernel("fdl_b6_heads")(
         blocks.data_ptr(), st_h.segments.data_ptr(), hist.data_ptr(),
         st_h.segments_ir.data_ptr(), st_t0.segments_ir.data_ptr(), st_h.overlap.data_ptr(),
-        _twiddles(2 * b, dev).data_ptr(), _twiddles(2 * plan.meta, dev).data_ptr(),
+        cached_twiddles(2 * b, dev).data_ptr(),
+        cached_twiddles(2 * plan.meta, dev).data_ptr(),
         scratch.data_ptr(), y.data_ptr(), overlap.data_ptr(), pre_h.data_ptr(),
         pre_t.data_ptr(), None if w is None else w.data_ptr(), *ptrs,
         v, b, n, t, st_h.current, cur_new, plan.meta, plan.fwd_tile, plan.fin_tile,

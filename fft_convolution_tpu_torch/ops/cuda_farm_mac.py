@@ -24,10 +24,11 @@ Computed, with ``row_s = (N - q - s) mod N``::
 bf16 storage the sums read the widened stored rows and the new rows are
 rounded to nearest even.  ``T <= min(N, MAX_BLOCKS)``.
 
-:func:`phased_step` (complex64) and :func:`phased_step_packed` (bf16) launch
-the kernel for CUDA tensors and take the plain PyTorch version
-:func:`phased_step_plain` only for CPU tensors; each counts its kernel
-launches in ``.launches``.  They return ``(convs [T, V, B+1], pre [V, B+1])``.
+:func:`phased_step` launches the kernel for CUDA tensors, its complex64 form
+``fdl_b5_step`` or its bf16 form ``fdl_b5p_step`` by the table's dtype, and
+takes the plain PyTorch version :func:`phased_step_plain` only for CPU
+tensors; ``phased_step.launches`` counts the launches of both forms.  It
+returns ``(convs [T, V, B+1], pre [V, B+1])``.
 """
 
 from __future__ import annotations
@@ -70,11 +71,17 @@ def phased_step_plain(ring: torch.Tensor, table: torch.Tensor, specs: torch.Tens
     return convs, pre
 
 
-def _launch(name: str, dtype: torch.dtype, ring: torch.Tensor, table: torch.Tensor,
-            specs: torch.Tensor, q: int) -> tuple[torch.Tensor, torch.Tensor]:
-    if specs.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {specs.device}")
+def phased_step(ring: torch.Tensor, table: torch.Tensor, specs: torch.Tensor,
+                q: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One step (module docstring).  CUDA tensors launch kernel B5, its bf16
+    form for a bf16 table; CPU tensors take :func:`phased_step_plain`."""
+    if specs.device.type == "cpu":
+        return phased_step_plain(ring, table, specs, q)
     dev = specs.device
+    packed = table.dtype == torch.bfloat16
+    dtype, name = (torch.bfloat16, "fdl_b5p_step") if packed else (torch.complex64, "fdl_b5_step")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
     n, t_len, lanes_shape = ring.shape[0], specs.shape[0], tuple(specs.shape[1:])
     if not 1 <= t_len <= min(n, MAX_BLOCKS):
         raise ValueError(f"{name}: T={t_len} outside [1, min(N={n}, {MAX_BLOCKS})]")
@@ -83,39 +90,18 @@ def _launch(name: str, dtype: torch.dtype, ring: torch.Tensor, table: torch.Tens
     lanes = math.prod(lanes_shape)
     if not 0 < lanes < 2 ** 31:
         raise ValueError(f"{name}: {lanes} lanes (the kernel indexes lanes with int)")
-    shape = (n, *lanes_shape) if dtype == torch.complex64 else (n, *lanes_shape, 2)
+    shape = (n, *lanes_shape, 2) if packed else (n, *lanes_shape)
     require(specs, "specs", (t_len, *lanes_shape), torch.complex64, dev)
     require(ring, "ring", shape, dtype, dev)
     require(table, "table", shape, dtype, dev)
     convs = torch.empty_like(specs)
     pre = torch.empty(lanes_shape, dtype=torch.complex64, device=dev)
-    err = getattr(_build.library(), name)(
+    err = _build.kernel(name)(
         ring.data_ptr(), table.data_ptr(), specs.data_ptr(), convs.data_ptr(),
         pre.data_ptr(), lanes, n, q, t_len, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, name)
+    phased_step.launches += 1
     return convs, pre
 
 
-def phased_step(ring: torch.Tensor, table: torch.Tensor, specs: torch.Tensor,
-                q: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The step over complex64 storage.  CUDA tensors launch kernel B5, CPU
-    tensors take :func:`phased_step_plain`."""
-    if specs.device.type == "cpu":
-        return phased_step_plain(ring, table, specs, q)
-    out = _launch("fdl_b5_step", torch.complex64, ring, table, specs, q)
-    phased_step.launches += 1
-    return out
-
-
-def phased_step_packed(ring: torch.Tensor, table: torch.Tensor, specs: torch.Tensor,
-                       q: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The step over bf16 storage (kernel B5, bf16 form)."""
-    if specs.device.type == "cpu":
-        return phased_step_plain(ring, table, specs, q)
-    out = _launch("fdl_b5p_step", torch.bfloat16, ring, table, specs, q)
-    phased_step_packed.launches += 1
-    return out
-
-
 phased_step.launches = 0
-phased_step_packed.launches = 0

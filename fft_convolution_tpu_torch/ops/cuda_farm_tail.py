@@ -33,8 +33,7 @@ import torch
 
 from .. import _build
 from .cuda_engine import require
-from .cuda_farm_heads import _twiddles  # one cache of the card's twiddle tables
-from .fft import irdft_block, rdft_block
+from .fft import cached_twiddles, irdft_block, rdft_block
 
 MIN_TB, MAX_TB = 64, 131072  # the tail blocks the kernel is built for
 MAX_POINTS = 16384           # complex points of one CTA's FFT
@@ -95,8 +94,8 @@ def tail_forward(blocks: torch.Tensor, tb: int) -> torch.Tensor:
     require(blocks, "blocks", (q * tb // b, v, b), torch.float32, dev)
     specs = torch.empty((q, v, tb + 1), dtype=torch.complex64, device=dev)
     err = _build.kernel("fdl_b7_tail_fwd")(
-        blocks.data_ptr(), _twiddles(2 * tb, dev).data_ptr(), specs.data_ptr(), v, b, tb, q,
-        torch.cuda.current_stream(dev).cuda_stream)
+        blocks.data_ptr(), cached_twiddles(2 * tb, dev).data_ptr(), specs.data_ptr(), v, b, tb,
+        q, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fdl_b7_tail_fwd")
     tail_forward.launches += 1
     return specs
@@ -120,8 +119,8 @@ def tail_inverse(convs: torch.Tensor, overlap: torch.Tensor) -> torch.Tensor:
     require(overlap, "overlap", (v, tb), torch.float32, dev)
     y = torch.empty((q, v, tb), device=dev)
     err = _build.kernel("fdl_b7_tail_inv")(
-        convs.data_ptr(), _twiddles(2 * tb, dev).data_ptr(), y.data_ptr(), overlap.data_ptr(),
-        v, tb, q, torch.cuda.current_stream(dev).cuda_stream)
+        convs.data_ptr(), cached_twiddles(2 * tb, dev).data_ptr(), y.data_ptr(),
+        overlap.data_ptr(), v, tb, q, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fdl_b7_tail_inv")
     tail_inverse.launches += 1
     return y

@@ -181,7 +181,7 @@ def _launch(name: str, dtype: torch.dtype, consts: StreamConsts, state: StreamSt
     scratch = torch.empty(t_len * (1 + plan.splits) * nb + (b + 1) // 2,
                           dtype=torch.complex64, device=dev)
     y = torch.empty((t_len, b), device=dev)
-    err = getattr(_build.library(), name)(
+    err = _build.kernel(name)(
         blocks.data_ptr(), state.ring.data_ptr(), consts.irrev.data_ptr(),
         consts.tw.data_ptr(), scratch.data_ptr(), y.data_ptr(), state.overlap.data_ptr(),
         n, b, t_len, state.w, plan.kb, plan.groups, plan.ring_rows, plan.rows, plan.splits,

@@ -206,6 +206,18 @@ def twiddles(fft_size: int, device) -> torch.Tensor:
     return torch.from_numpy(_twiddle_host(fft_size)).to(device)
 
 
+_TWIDDLES: dict = {}
+
+
+def cached_twiddles(fft_size: int, device: torch.device) -> torch.Tensor:
+    """:func:`twiddles`, kept on the device: one copy per size and device,
+    for the farm's kernels, which take no constants object."""
+    key = (fft_size, device)
+    if key not in _TWIDDLES:
+        _TWIDDLES[key] = twiddles(fft_size, device)
+    return _TWIDDLES[key]
+
+
 class Fft:
     """Plan-style wrapper over ``torch.fft`` — the public surface of the
     reference's ``Fft`` struct (``src/fft_convolver.rs:29-50``):

@@ -52,16 +52,14 @@ collective.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
 
 import torch
 
 from ..models import two_stage, uniform
-from ..models.two_stage import (TwoStageConfig, TwoStageState, combined_head_kernel,
-                                compute_tail_block_size)
+from ..models.two_stage import TwoStageConfig, TwoStageState, compute_tail_block_size
 from ..ops import cuda_farm_heads, cuda_farm_mac, cuda_farm_tail
 from ..ops.cuda_engine import to_bf16
-from ..ops.fft import causal_conv_khat, next_power_of_two
+from ..ops.fft import next_power_of_two
 from ..utils.profiling import annotate
 from . import farm
 
@@ -308,7 +306,13 @@ def _small_stages(cfg: TwoStageConfig, state):
         yield cfg.tail0, state.tail0, cfg.tail_block
 
 
-_PENDING = ("tail_output0", "tail_precalc0", "tail_output", "tail_precalc")
+def _pending(cfg: TwoStageConfig, state) -> tuple:
+    """The voice-stacked buffers an update zeroes: the pending period
+    buffers and, with the big tail, its ``pre`` and overlap and ``hist``."""
+    if cfg.tail is None:
+        return (state.tail_output0, state.tail_precalc0, state.tail_output, state.tail_precalc)
+    return (state.tail.pre, state.tail.overlap, state.hist, state.tail_output,
+            state.tail_precalc)
 
 
 def max_blocks_per_call(period: int, tail_segments: int) -> int:
@@ -334,18 +338,13 @@ def farm2_update(cfg: TwoStageConfig, state: Farm2State, new_irs) -> None:
         farm.farm_update(scfg, stage,
                          _stage_slice(new_irs, lo, scfg.ir_len,
                                       scfg.seg_count * scfg.block_size), scfg.ir_len)
-    if cfg.tail is None:
-        for k in _PENDING:
-            getattr(state, k).zero_()
-        return
-    with annotate("fftconv.farm.update.table"):
-        _write_tail_table(cfg, state.tail.table, new_irs,
-                          torch.arange(new_irs.shape[0], device=new_irs.device))
-    state.tail.overlap.zero_()
-    state.tail.pre.zero_()
-    for buf in (state.hist, state.tail_output, state.tail_precalc):
+    if cfg.tail is not None:
+        with annotate("fftconv.farm.update.table"):
+            _write_tail_table(cfg, state.tail.table, new_irs,
+                              torch.arange(new_irs.shape[0], device=new_irs.device))
+        state.suppress.fill_(True)
+    for buf in _pending(cfg, state):
         buf.zero_()
-    state.suppress.fill_(True)
 
 
 def farm2_update_voices(cfg: TwoStageConfig, state: Farm2State, voice_idx,
@@ -364,88 +363,69 @@ def farm2_update_voices(cfg: TwoStageConfig, state: Farm2State, voice_idx,
         stage.segments_ir[idx] = farm.stage_spectra(scfg, padded)
         stage.overlap[idx] = 0.0
         stage.pre_multiplied[idx] = 0.0
-    if cfg.tail is None:
-        for k in _PENDING:
-            getattr(state, k)[idx] = 0.0
-        return
-    with annotate("fftconv.farm.update.table"):
-        _write_tail_table(cfg, state.tail.table, new_irs, idx)
-    for buf in (state.tail.pre, state.tail.overlap, state.hist, state.tail_output,
-                state.tail_precalc):
+    if cfg.tail is not None:
+        with annotate("fftconv.farm.update.table"):
+            _write_tail_table(cfg, state.tail.table, new_irs, idx)
+    for buf in _pending(cfg, state):
         buf[idx] = 0.0
-    state.suppress[idx.cpu()] = True
+    if cfg.tail is not None:  # after the launches: idx.cpu() waits on the card
+        state.suppress[idx.cpu()] = True
+
+
+def farm2_reset(cfg: TwoStageConfig, state: Farm2State | TwoStageState) -> None:
+    """Clear every voice's input state in place and keep the IR tables
+    (``FFTConvolver::reset`` semantics, ``src/fft_convolver.rs:296``): the
+    rings, overlaps, pending buffers, phase and suppress flags return to
+    :func:`farm2_init`'s."""
+    if cfg.tail is None:
+        two_stage.reset(cfg, state)
+        return
+    uniform.reset(state.head)
+    uniform.reset(state.tail0)
+    for buf in (state.tail.ring, *_pending(cfg, state)):
+        buf.zero_()
+    state.tail.q = 0
+    state.suppress.fill_(False)
 
 
 def _tail_corr_phased_fused(cfg: uniform.UniformConfig, tail: TailState,
-                            blocks: torch.Tensor, step: Callable,
-                            tail_dft: tuple = (cuda_farm_tail.tail_forward,
-                                               cuda_farm_tail.tail_inverse)) -> torch.Tensor:
+                            blocks: torch.Tensor) -> torch.Tensor:
     """The big tail for ``blocks [T p, V, B]`` (``p = tb / B`` head blocks a
     tail row; rows ``[T, V, tb]`` are the case ``B = tb``): forward rDFT of
-    the rows, the phased step ``step`` (kernel B5 or its plain version),
-    inverse rDFT and overlap-add — ``_tail_corr_phased_fused``
-    (``fft_convolution_tpu/parallel/farm2.py:666``).  ``tail_dft``: the
-    transforms' pair, kernel B7 (:func:`..ops.cuda_farm_tail.tail_forward`,
-    ``tail_inverse``, which take their plain versions for CPU tensors) or
-    the plain versions.  Returns ``[T, V, tb]``.  The stages around the step
-    are the spans ``fftconv.farm.tail_fwd`` (the rows' gather and rDFT) and
-    ``fftconv.farm.tail_inv`` (the inverse, the overlap-add and its
-    carry)."""
+    the rows, the phased step, inverse rDFT and overlap-add —
+    ``_tail_corr_phased_fused``
+    (``fft_convolution_tpu/parallel/farm2.py:666``): kernel B7's two
+    launches (:func:`..ops.cuda_farm_tail.tail_forward`, ``tail_inverse``)
+    around kernel B5 (:func:`..ops.cuda_farm_mac.phased_step`), each of
+    which takes its plain version for CPU tensors.  Returns ``[T, V, tb]``.
+    The stages around the step are the spans ``fftconv.farm.tail_fwd`` (the
+    rows' gather and rDFT) and ``fftconv.farm.tail_inv`` (the inverse, the
+    overlap-add and its carry)."""
     tb, n = cfg.block_size, cfg.seg_count
-    forward, inverse = tail_dft
     t = blocks.shape[0] * blocks.shape[2] // tb
     if t > min(n, cuda_farm_mac.MAX_BLOCKS):
         raise ValueError(f"the phased core takes at most min(N={n}, "
                          f"{cuda_farm_mac.MAX_BLOCKS}) blocks per call, got {t}")
     with annotate("fftconv.farm.tail_fwd"):
-        specs = forward(blocks, tb)                            # [T, V, tb+1]
-    convs, tail.pre = step(tail.ring, tail.table, specs, tail.q)
+        specs = cuda_farm_tail.tail_forward(blocks, tb)        # [T, V, tb+1]
+    convs, tail.pre = cuda_farm_mac.phased_step(tail.ring, tail.table, specs, tail.q)
     del specs  # each transient goes as soon as it is dead: the farm's peak
     with annotate("fftconv.farm.tail_inv"):
-        y = inverse(convs, tail.overlap)                       # overlap carried in place
+        y = cuda_farm_tail.tail_inverse(convs, tail.overlap)   # overlap carried in place
     tail.q = (tail.q + t) % n
     return y
 
 
-def farm2_head_khat(cfg: TwoStageConfig, state: Farm2State, t: int) -> torch.Tensor:
-    """The combined head kernel's meta-spectra for ``t``-block calls
-    (``farm2_head_khat``, ``fft_convolution_tpu/parallel/farm2.py:855``):
-    input-independent between IR updates; valid for any call length with
-    the same ``npo2(2n - 1 + t)``.  Only the plain head path
-    (``heads_step_plain``) takes it; kernel B6 transforms the raw tables."""
-    m = next_power_of_two(2 * cfg.head.seg_count - 1 + t)
-    return causal_conv_khat(combined_head_kernel(state.head, state.tail0), m)
-
-
-def farm2_head_khat_voices(cfg: TwoStageConfig, state: Farm2State, t: int,
-                           voice_idx) -> torch.Tensor:
-    """The ``[K]``-voice rows of :func:`farm2_head_khat`
-    (``fft_convolution_tpu/parallel/farm2.py:872``)."""
-    idx = torch.as_tensor(voice_idx, dtype=torch.long, device=state.hist.device)
-    m = next_power_of_two(2 * cfg.head.seg_count - 1 + t)
-    kern = torch.cat([state.head.segments_ir[idx], state.tail0.segments_ir[idx]], dim=1)
-    return causal_conv_khat(kern, m)
-
-
 def farm2_stream(cfg: TwoStageConfig, state: Farm2State | TwoStageState,
-                 blocks: torch.Tensor, step: Callable = cuda_farm_mac.phased_step,
-                 head_khat: dict | None = None,
-                 heads: Callable = cuda_farm_heads.heads_step,
-                 tail_dft: tuple = (cuda_farm_tail.tail_forward,
-                                    cuda_farm_tail.tail_inverse)) -> torch.Tensor:
+                 blocks: torch.Tensor, small_khats: dict | None = None) -> torch.Tensor:
     """Stream ``blocks [T, V, B] -> [T, V, B]`` (``farm2_stream``,
     ``fft_convolution_tpu/parallel/farm2.py:1040``), ``T`` a multiple of
-    the period; the state advances in place.  ``step`` is the big tail's
-    phased step (:func:`..ops.cuda_farm_mac.phased_step`,
-    ``phased_step_packed`` for bf16 storage, or ``phased_step_plain``);
-    ``heads`` the head path (:func:`..ops.cuda_farm_heads.heads_step`,
-    kernel B6, or ``heads_step_plain``, with :func:`farm2_head_khat` bound
-    by ``functools.partial`` for the cached meta-spectra); ``tail_dft`` the
-    big tail's transforms (kernel B7's pair, or
-    ``(tail_forward_plain, tail_inverse_plain)`` of
-    :mod:`..ops.cuda_farm_tail`).  The big tail runs first, so the head path
-    adds the delay line as it writes ``y``.
-    ``head_khat``: the short-IR farm's
+    the period; the state advances in place.  The big tail
+    (:func:`_tail_corr_phased_fused`: kernels B7 and B5, B5's bf16 form for
+    a bf16 table) runs first, so the head path
+    (:func:`..ops.cuda_farm_heads.heads_step`, kernel B6) adds the delay
+    line as it writes ``y``; for CPU tensors each takes its plain version.
+    ``small_khats``: the short-IR farm's
     :func:`..models.two_stage.small_stream_khats` of the voice-stacked state
     for this ``T``, which sends both small stages to the uniform conv core
     (their rings are full and clean: every update is at full capacity).
@@ -459,18 +439,15 @@ def farm2_stream(cfg: TwoStageConfig, state: Farm2State | TwoStageState,
     if q * p != t or q == 0:
         raise ValueError(f"T={t} must be a positive multiple of the period {p}")
     if cfg.tail is None:
-        return two_stage.process_stream_aligned(cfg, state, blocks.transpose(0, 1), head_khat,
+        return two_stage.process_stream_aligned(cfg, state, blocks.transpose(0, 1), small_khats,
                                                 fuse_small=False).transpose(0, 1).contiguous()
-    if head_khat is not None:
-        raise ValueError("head_khat is the short-IR farm's; bind farm2_head_khat into "
-                         "heads=functools.partial(heads_step_plain, khat=...)")
     # B7 gathers the tail's rows, one tail block a period, from the blocks
     blocks = blocks.contiguous()
-    out_t = _tail_corr_phased_fused(cfg.tail, state.tail, blocks, step, tail_dft)
+    out_t = _tail_corr_phased_fused(cfg.tail, state.tail, blocks)
     # the two-period delay line: the pending precalc into period 0, the
     # pending output into period 1, this call's early big-tail outputs after
-    y = heads(state.head, state.tail0, blocks, state.hist, state.suppress,
-              delay=(state.tail_precalc, state.tail_output, out_t))
+    y = cuda_farm_heads.heads_step(state.head, state.tail0, blocks, state.hist, state.suppress,
+                                   delay=(state.tail_precalc, state.tail_output, out_t))
     state.tail_precalc = out_t[-2].clone() if q >= 2 else state.tail_output
     state.tail_output = out_t[-1].clone()
     state.suppress.fill_(False)

@@ -55,7 +55,7 @@ def main() -> None:
     counts = Counts(B1=cuda_engine.block_step, B1p=cuda_engine.block_step_packed,
                     B2=cuda_two_stage.block_step, B3=cuda_crossfade.block_step,
                     B4=cuda_stream.stream, B4p=cuda_stream.stream_packed,
-                    B5=cuda_farm_mac.phased_step, B5p=cuda_farm_mac.phased_step_packed)
+                    B5=cuda_farm_mac.phased_step)
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     ir30 = (rng.standard_normal(STREAM_SECONDS * SR) * 0.01).astype(np.float32)

@@ -10,10 +10,9 @@ checkout), builds its kernels and runs ``chip_smoke.py``'s phase 13 head
 path (``chip_smoke.farm_head_path``) at config 5's shape: 128 voices of
 random 60 s 48 kHz IRs drawn as phase 10 draws them (seed 5, scale 0.002),
 block 128, 8-period calls (T = 2048).  That is B6 against its plain
-version (gated as there); the head path alone in turns, B6 and the
-parent's form (the plain version over cached meta-spectra), event ms and
-device microseconds by CUDA kernel; the farm call in both forms with f32
-and bf16 tails; and the peak memory of a call beside
+version (gated as there); the head path alone in turns, B6 and its plain
+version, event ms and device microseconds by CUDA kernel; the farm call
+with f32 and bf16 tails; and the peak memory of a call beside
 ``farm2_bytes_per_voice``.  First, and alone with ``--columns-only``: the
 column launch ``b6_columns``' device microseconds a call at the benchmark
 cells' head shapes (block 128, n = 256: 1024 voices at T = 512 and 2048,

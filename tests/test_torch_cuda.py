@@ -12,15 +12,17 @@ run them without it::
 This file imports nothing of JAX.
 """
 
+import contextlib
 import importlib.util
 import pathlib
 import sys
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
-from fft_convolution_tpu_torch import ReverbFarm
+from fft_convolution_tpu_torch import ReverbFarm, _build
 from fft_convolution_tpu_torch.models import crossfade, uniform
 from fft_convolution_tpu_torch.ops import (cuda_crossfade, cuda_engine, cuda_farm_heads,
                                            cuda_farm_mac, cuda_farm_tail, cuda_stream,
@@ -51,6 +53,16 @@ def dev():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
+
+
+@contextlib.contextmanager
+def _plain(module, *names):
+    """The ``ops`` module's wrappers ``names`` swapped for their plain
+    versions for the block: what a farm then runs."""
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            stack.enter_context(mock.patch.object(module, name, getattr(module, f"{name}_plain")))
+        yield
 
 
 def _b1_operands(b, n, dev, seed):
@@ -541,7 +553,7 @@ def test_b5_kernel_matches_plain(dev, packed, v, tb, n, steps):
     exactly (both round to nearest even)."""
     rng = np.random.default_rng(140 + n)
     ring, table = _b5_operands(rng, n, v, tb, dev, packed)
-    step = cuda_farm_mac.phased_step_packed if packed else cuda_farm_mac.phased_step
+    step = cuda_farm_mac.phased_step
     for q, t_len in steps:
         specs = torch.from_numpy((rng.standard_normal((t_len, v, tb + 1)) * 0.1)
                                  .astype(np.complex64)).to(dev)
@@ -552,6 +564,29 @@ def test_b5_kernel_matches_plain(dev, packed, v, tb, n, steps):
         _close(convs, pc, f"convs q={q} T={t_len}")
         _close(pre, pp, f"pre q={q} T={t_len}")
         assert torch.equal(ring, plain), f"ring q={q} T={t_len}"
+
+
+@pytest.mark.parametrize("packed,kernel", [(False, "fdl_b5_step"), (True, "fdl_b5p_step")],
+                         ids=["f32", "bf16"])
+def test_b5_form_follows_the_table(dev, packed, kernel):
+    """phased_step launches B5's bf16 form for a bf16 table and its complex64
+    form for a complex64 one, once, and matches phased_step_plain."""
+    rng = np.random.default_rng(145)
+    n, v, tb = 8, 3, 64
+    ring, table = _b5_operands(rng, n, v, tb, dev, packed)
+    specs = torch.from_numpy((rng.standard_normal((3, v, tb + 1)) * 0.1)
+                             .astype(np.complex64)).to(dev)
+    plain = ring.clone()
+    before = cuda_farm_mac.phased_step.launches
+    with mock.patch.object(_build, "kernel", wraps=_build.kernel) as lookup:
+        convs, pre = cuda_farm_mac.phased_step(ring, table, specs, 5)
+    assert [c.args[0] for c in lookup.call_args_list] == [kernel]
+    assert cuda_farm_mac.phased_step.launches == before + 1
+    pc, pp = cuda_farm_mac.phased_step_plain(plain, table, specs, 5)
+    torch.cuda.synchronize()
+    _close(convs, pc, "convs")
+    _close(pre, pp, "pre")
+    assert torch.equal(ring, plain)
 
 
 @pytest.mark.parametrize("tail_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -591,8 +626,10 @@ def test_b5_rejects_bad_operands(dev):
         step(ring, table[:, :1].contiguous(), specs, 0)
     with pytest.raises(ValueError):  # not contiguous
         step(ring.transpose(1, 2).contiguous().transpose(1, 2), table, specs, 0)
-    with pytest.raises(ValueError):  # complex64 storage given to the bf16 form
-        cuda_farm_mac.phased_step_packed(ring, table, specs, 0)
+    with pytest.raises(ValueError):  # a bf16 ring beside a complex64 table
+        step(torch.view_as_real(ring).to(torch.bfloat16), table, specs, 0)
+    with pytest.raises(ValueError):  # a float32 table
+        step(ring, torch.view_as_real(table).contiguous(), specs, 0)
     with pytest.raises(ValueError):  # the ring on the CPU
         step(ring.cpu(), table, specs, 0)
     big_ring, big_table = _b5_operands(rng, 17, 1, 16, dev, packed=False)
@@ -613,8 +650,7 @@ def test_reverb_farm_on_card_matches_cpu(dev, tail_dtype):
     gpu = ReverbFarm(irs, 64, 9000, tail_dtype=tail_dtype, device=dev)
     cpu = ReverbFarm(irs, 64, 9000, tail_dtype=tail_dtype, device="cpu")
     p = gpu.period
-    launches = (cuda_farm_mac.phased_step_packed if tail_dtype == torch.bfloat16
-                else cuda_farm_mac.phased_step)
+    launches = cuda_farm_mac.phased_step
     before = launches.launches
     for call, periods in enumerate((2, 1, 4, 3)):
         if call == 2:
@@ -647,7 +683,7 @@ def test_bf16_farm_at_the_cells_shapes_matches_float64(dev):
     farm = ReverbFarm(irs, b, taps, tail_dtype=torch.bfloat16, device=dev)
     assert (farm.tail_block, farm.cfg.tail.seg_count) == (32768, 88)
     p, tb = farm.period, farm.tail_block
-    step = cuda_farm_mac.phased_step_packed
+    step = cuda_farm_mac.phased_step
     dry = []                          # the blocks since the last reset
     since = torch.zeros(v, dtype=torch.long, device=dev)  # first exact sample
     for event in (2, 1, "update", 2, 2, "reset", 2, 1):
@@ -897,20 +933,20 @@ def test_b7_replays_bit_exact(dev, tb):
 @pytest.mark.parametrize("tail_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_b7_launches_once_a_farm_call(dev, tail_dtype):
     """A card farm launches each of B7's kernels once a call, whatever its
-    length; a farm whose transforms are set to the plain versions launches
-    none and gives the same output to B7's tolerance."""
+    length; a farm run with the transforms swapped for their plain versions
+    launches none and gives the same output to B7's tolerance."""
     rng = np.random.default_rng(210)
     irs = (rng.standard_normal((3, 9000)) * 0.05).astype(np.float32)
     farm = ReverbFarm(irs, 64, 9000, tail_dtype=tail_dtype, device=dev)
     twin = ReverbFarm(irs, 64, 9000, tail_dtype=tail_dtype, device=dev)
-    twin._tail_dft = (cuda_farm_tail.tail_forward_plain, cuda_farm_tail.tail_inverse_plain)
     fwd, inv = cuda_farm_tail.tail_forward, cuda_farm_tail.tail_inverse
     for periods in (1, 4, 2):
         x = rng.standard_normal((periods * farm.period, 3, 64)).astype(np.float32)
         before = (fwd.launches, inv.launches)
         y = farm.process(x)
         assert (fwd.launches, inv.launches) == (before[0] + 1, before[1] + 1)
-        yp = twin.process(x)
+        with _plain(cuda_farm_tail, "tail_forward", "tail_inverse"):
+            yp = twin.process(x)
         assert (fwd.launches, inv.launches) == (before[0] + 1, before[1] + 1)
         torch.cuda.synchronize()
         _close_peak(y, yp, f"farm call of {periods} periods")
@@ -959,7 +995,7 @@ def _dp_farm_rank(rank, world, irs, x, bf16):
 
     farm = ReverbFarm(irs, 64, irs.shape[1], mesh=make_mesh((world,), ("dp",), "cuda"),
                       tail_dtype=torch.bfloat16 if bf16 else torch.float32)
-    step = cuda_farm_mac.phased_step_packed if bf16 else cuda_farm_mac.phased_step
+    step = cuda_farm_mac.phased_step
     before = step.launches
     own = slice(farm.local_voices.start, farm.local_voices.stop)
     ys = [farm.process(xc[:, own]).cpu() for xc in x]

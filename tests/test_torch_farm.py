@@ -11,6 +11,7 @@ its three mesh tests on a ``"dp"`` mesh of 2 gloo ranks (one spawn for the
 three, the rank bodies in ``tests/torch_ranks.py``, which imports no JAX):
 each rank's voice slab against the JAX farm's rows."""
 
+import dataclasses
 import functools
 
 import jax
@@ -29,7 +30,7 @@ from fft_convolution_tpu.parallel import farm as jfarm
 from fft_convolution_tpu.parallel import farm2 as jfarm2
 from fft_convolution_tpu_torch import ReverbFarm, interop
 from fft_convolution_tpu_torch.api_two_stage import TwoStageFFTConvolver
-from fft_convolution_tpu_torch.models import uniform
+from fft_convolution_tpu_torch.models import two_stage, uniform
 from fft_convolution_tpu_torch.ops import cuda_farm_heads, cuda_farm_mac, cuda_farm_tail
 from fft_convolution_tpu_torch.ops import fft as tfft
 from fft_convolution_tpu_torch.ops.fft import packed_to_complex
@@ -45,9 +46,6 @@ PRE_RTOL = 1e-4
 # round the same float32 spectrum from two DFTs, a value a hair from a
 # rounding tie may land one step apart.
 BF16_STEP = 2.0 ** -7
-
-plain = cuda_farm_mac.phased_step_plain
-
 
 def _irs(rng, v=V, n=IR_LEN, scale=0.05):
     return (rng.standard_normal((v, n)) * scale).astype(np.float32)
@@ -107,7 +105,7 @@ def test_phased_step_plain_matches_pallas_interpret(variant, packed):
         for q in (0, 1, 7, 8, 13, n - 1):
             convs, pre = call(ju, jk, jspecs, jnp.asarray(q, jnp.int32))
             ring = ring0.clone()
-            got_c, got_p = plain(ring, table, specs, q)
+            got_c, got_p = cuda_farm_mac.phased_step_plain(ring, table, specs, q)
             want_c = _fused(convs, v)
             want_p = _fused(np.asarray(pre)[None], v)[0]
             scale = float(want_c.abs().max())
@@ -141,7 +139,7 @@ def test_tail_core_matches_jnp_core(t_len, packed):
     tail = farm2.TailState(ring=ring, table=table, overlap=torch.from_numpy(overlap),
                            pre=torch.zeros((v, tb + 1), dtype=torch.complex64), q=q)
     y = farm2._tail_corr_phased_fused(farm.uniform.make_config(tb, n * tb), tail,
-                                      torch.from_numpy(rows), plain)
+                                      torch.from_numpy(rows))
     _close(y, jy, ATOL * max(1.0, float(np.abs(np.asarray(jy)).max())), "y")
     _close(tail.overlap, jst.overlap, 1e-5, "overlap")
     assert tail.q == int(jst.current) == (q + t_len) % n
@@ -155,10 +153,10 @@ def test_tail_core_matches_jnp_core(t_len, packed):
 
 
 def test_phased_step_wrappers_take_plain_on_cpu():
-    """On a CPU tensor the wrappers take the plain version and count no
-    launch; T = N = 1 (a one-segment ring) works."""
+    """On CPU tensors the wrapper takes the plain version for either storage
+    and counts no launch; T = N = 1 (a one-segment ring) works."""
     rng = np.random.default_rng(62)
-    before = (cuda_farm_mac.phased_step.launches, cuda_farm_mac.phased_step_packed.launches)
+    before = cuda_farm_mac.phased_step.launches
     ring = torch.zeros((1, 2, 5), dtype=torch.complex64)
     table = torch.from_numpy(rng.standard_normal((1, 2, 5)).astype(np.complex64))
     specs = torch.from_numpy(rng.standard_normal((1, 2, 5)).astype(np.complex64))
@@ -167,10 +165,11 @@ def test_phased_step_wrappers_take_plain_on_cpu():
     _close(convs[0], specs[0] * table[0], 1e-6)
     _close(pre, torch.zeros_like(pre), 1e-6)
     assert torch.equal(ring[0], specs[0])
-    cuda_farm_mac.phased_step_packed(cuda_farm_mac.to_bf16(ring), cuda_farm_mac.to_bf16(table),
-                                     specs, 0)
-    assert (cuda_farm_mac.phased_step.launches,
-            cuda_farm_mac.phased_step_packed.launches) == before
+    ring_bf = cuda_farm_mac.to_bf16(torch.zeros_like(ring))
+    convs_bf, _ = cuda_farm_mac.phased_step(ring_bf, cuda_farm_mac.to_bf16(table), specs, 0)
+    _close(convs_bf[0], specs[0] * cuda_farm_mac.as_c64(cuda_farm_mac.to_bf16(table))[0], 1e-6)
+    assert torch.equal(ring_bf[0], cuda_farm_mac.to_bf16(specs)[0])
+    assert cuda_farm_mac.phased_step.launches == before
 
 
 # ---- kernel B7's plain versions, plan and the capacity model -------------------
@@ -211,7 +210,7 @@ def test_tail_core_plain_is_the_parents_arithmetic(tb, b, t_len, packed):
                                pre=torch.zeros((v, tb + 1), dtype=torch.complex64), q=5)
 
     new, old = state(), state()
-    y = farm2._tail_corr_phased_fused(cfg, new, blocks, step)
+    y = farm2._tail_corr_phased_fused(cfg, new, blocks)
     want = _parent_tail_core(cfg, old, blocks.reshape(t_len, tb // b, v, b).transpose(1, 2),
                              step)
     assert torch.equal(y, want)
@@ -413,11 +412,11 @@ def test_farm2_stream_matches_jax(mac):
     for call, periods in enumerate([2, 1, 4, 3, 2, 1]):
         x = rng.standard_normal((periods * p, 4, B)).astype(np.float32)
         jst, yj = run(jst, jnp.asarray(x))
-        _close(farm2.farm2_stream(cfg, st, torch.from_numpy(x), plain), yj, ATOL,
+        _close(farm2.farm2_stream(cfg, st, torch.from_numpy(x)), yj, ATOL,
                f"call {call} ({periods} periods)")
         _states_close(st, jcfg, jst, f"call {call}")
         if carried is not None:
-            _close(farm2.farm2_stream(cfg, carried, torch.from_numpy(x), plain), yj, ATOL,
+            _close(farm2.farm2_stream(cfg, carried, torch.from_numpy(x)), yj, ATOL,
                    f"carried, call {call}")
         if call == 2:
             carried = interop.farm_state(jcfg, jst)
@@ -441,7 +440,7 @@ def test_farm2_bf16_matches_jax_packed(mac):
         st = interop.farm_state(jcfg, jst)
         x = rng.standard_normal((periods * cfg.period, 2, B)).astype(np.float32)
         jst, yj = run(jst, jnp.asarray(x))
-        y = farm2.farm2_stream(cfg, st, torch.from_numpy(x), plain)
+        y = farm2.farm2_stream(cfg, st, torch.from_numpy(x))
         _close(y, yj, ATOL, f"call {call}")
         got = cuda_farm_mac.as_c64(st.tail.ring)
         want = cuda_farm_mac.as_c64(interop.farm_state(jcfg, jst).tail.ring)
@@ -456,8 +455,8 @@ def test_farm2_bf16_close_to_f32():
     cfg, sf = farm2.farm2_init(irs, B, IR_LEN)
     _, sb = farm2.farm2_init(irs, B, IR_LEN, tail_dtype=torch.bfloat16)
     x = torch.from_numpy(rng.standard_normal((8 * cfg.period, 2, B)).astype(np.float32))
-    yf = torch.cat([farm2.farm2_stream(cfg, sf, xc, plain) for xc in x.split(32)])
-    yb = torch.cat([farm2.farm2_stream(cfg, sb, xc, plain) for xc in x.split(32)])
+    yf = torch.cat([farm2.farm2_stream(cfg, sf, xc) for xc in x.split(32)])
+    yb = torch.cat([farm2.farm2_stream(cfg, sb, xc) for xc in x.split(32)])
     _scaled(yb, yf, 2e-2, "bf16 vs f32")
     # the first two periods carry no big-tail contribution: identical heads
     _close(yb[:2 * cfg.period], yf[:2 * cfg.period], 0.0)
@@ -475,7 +474,7 @@ def test_farm2_updates_match_jax(subset):
     p = cfg.period
     x = rng.standard_normal((5 * p, 3, B)).astype(np.float32)
     jst, _ = run(jst, jnp.asarray(x[:2 * p]))
-    farm2.farm2_stream(cfg, st, torch.from_numpy(x[:2 * p]), plain)
+    farm2.farm2_stream(cfg, st, torch.from_numpy(x[:2 * p]))
     if subset is None:
         jst = jfarm2.farm2_update(jcfg, jst, jnp.asarray(new))
         farm2.farm2_update(cfg, st, new)
@@ -489,7 +488,7 @@ def test_farm2_updates_match_jax(subset):
     _states_close(st, jcfg, jst, "after the update")
     for call, (lo, hi) in enumerate([(2 * p, 3 * p), (3 * p, 5 * p)]):
         jst, yj = run(jst, jnp.asarray(x[lo:hi]))
-        _close(farm2.farm2_stream(cfg, st, torch.from_numpy(x[lo:hi]), plain), yj, ATOL,
+        _close(farm2.farm2_stream(cfg, st, torch.from_numpy(x[lo:hi])), yj, ATOL,
                f"call {call} after the update")
 
 
@@ -505,6 +504,50 @@ def test_farm2_bf16_update_table_matches_jax_words():
     got = cuda_farm_mac.as_c64(st.tail.table)
     want = cuda_farm_mac.as_c64(interop.farm_state(jcfg, jst).tail.table)
     assert float((got - want).abs().max()) <= BF16_STEP * float(want.abs().max())
+
+
+def _state_fields(state, prefix=""):
+    """``(name, value)`` of every tensor and int of a farm state, nested
+    dataclasses walked."""
+    for f in dataclasses.fields(state):
+        value = getattr(state, f.name)
+        if dataclasses.is_dataclass(value):
+            yield from _state_fields(value, f"{prefix}{f.name}.")
+        else:
+            yield f"{prefix}{f.name}", value
+
+
+@pytest.mark.parametrize("ir_len,tail_dtype", [(IR_LEN, torch.float32),
+                                               (IR_LEN, torch.bfloat16),
+                                               (256, torch.float32)],
+                         ids=["f32", "bf16", "short-ir"])
+def test_farm2_reset_returns_to_init(ir_len, tail_dtype):
+    """After a stream and an update of one voice, farm2_reset leaves every
+    state field equal to farm2_init's from the responses the farm now
+    holds, and the next call equals a fresh farm's."""
+    rng = np.random.default_rng(72)
+    irs = _irs(rng, 3, ir_len)
+    cfg, st = farm2.farm2_init(irs, B, ir_len, tail_dtype=tail_dtype)
+    p = cfg.period
+
+    def stream(state, x):
+        khats = None if cfg.tail else two_stage.small_stream_khats(cfg, state, x.shape[0])
+        return farm2.farm2_stream(cfg, state, torch.from_numpy(x), khats)
+
+    stream(st, rng.standard_normal((3 * p, 3, B)).astype(np.float32))
+    new = _irs(rng, 1, ir_len)
+    farm2.farm2_update_voices(cfg, st, [1], new)
+    stream(st, rng.standard_normal((p, 3, B)).astype(np.float32))
+    farm2.farm2_reset(cfg, st)
+    irs[1] = new[0]
+    _, fresh = farm2.farm2_init(irs, B, ir_len, tail_dtype=tail_dtype)
+    for (name, got), (_, want) in zip(_state_fields(st), _state_fields(fresh), strict=True):
+        if isinstance(want, torch.Tensor):
+            assert torch.equal(got, want), name
+        else:
+            assert got == want, name
+    x = rng.standard_normal((2 * p, 3, B)).astype(np.float32)
+    assert torch.equal(stream(st, x), stream(fresh, x))
 
 
 def test_farm2_capacity_guard_explicit_budgets():
@@ -582,49 +625,29 @@ def test_heads_step_plain_matches_jax(periods, suppress):
 def test_heads_step_on_cpu_is_the_plain_version():
     """heads_step takes the plain version for CPU tensors (no launch counted),
     with the delay line added: the same output and exit state as
-    heads_step_plain; the plain version with the table's meta-spectra bound
-    (as a caller of farm2_stream binds them) matches the call without khat
-    to float32 rounding, and farm2_stream refuses head_khat for a big-tail
-    farm."""
+    heads_step_plain."""
     rng = np.random.default_rng(86)
     cfg, st = farm2.farm2_init(_irs(rng, 2), B, IR_LEN)
     p = cfg.period
     farm2.farm2_stream(cfg, st, torch.from_numpy(
-        rng.standard_normal((2 * p, 2, B)).astype(np.float32)), plain)
+        rng.standard_normal((2 * p, 2, B)).astype(np.float32)))
     x = torch.from_numpy(rng.standard_normal((3 * p, 2, B)).astype(np.float32))
     delay = tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                   for shape in ((2, p * B), (2, p * B), (3, 2, p * B)))
     before = cuda_farm_heads.heads_step.launches
-    twin, other, bare = st.clone(), st.clone(), st.clone()
+    twin, bare = st.clone(), st.clone()
     y = cuda_farm_heads.heads_step(st.head, st.tail0, x, st.hist, st.suppress, delay)
     want = cuda_farm_heads.heads_step_plain(twin.head, twin.tail0, x, twin.hist,
                                             twin.suppress, delay)
     assert cuda_farm_heads.heads_step.launches == before
     assert torch.equal(y, want) and torch.equal(st.hist, twin.hist)
     assert torch.equal(st.head.segments, twin.head.segments)
-    khat = farm2.farm2_head_khat(cfg, other, 3 * p)
-    with_khat = functools.partial(cuda_farm_heads.heads_step_plain, khat=khat)
-    y_k = with_khat(other.head, other.tail0, x, other.hist, other.suppress, delay)
-    _close(y_k, want, ATOL, "with khat")
-    with pytest.raises(ValueError, match="short-IR farm"):
-        farm2.farm2_stream(cfg, bare.clone(), x, plain, head_khat=khat)
     # the delay line: period 0 takes the precalc, 1 the output, 2 tail row 0
     y_bare = cuda_farm_heads.heads_step_plain(bare.head, bare.tail0, x, bare.hist,
                                               bare.suppress)
     added = (y - y_bare).view(3, p, 2, B)
     for period, want_d in enumerate((delay[0], delay[1], delay[2][0])):
         _close(added[period], want_d.view(2, p, B).transpose(0, 1), ATOL, f"period {period}")
-
-
-def test_farm2_head_khat_voices_are_rows_of_the_whole():
-    """farm2_head_khat_voices (the plain head path's per-voice meta-spectra)
-    equals the rows of farm2_head_khat for those voices."""
-    rng = np.random.default_rng(88)
-    cfg, st = farm2.farm2_init(_irs(rng, 4), B, IR_LEN)
-    t = 3 * cfg.period
-    whole = farm2.farm2_head_khat(cfg, st, t)
-    _close(farm2.farm2_head_khat_voices(cfg, st, t, [3, 1]), whole[[3, 1]],
-           1e-6 * float(whole.abs().max()))
 
 
 @pytest.mark.parametrize("n,b,t,plan", [
@@ -829,8 +852,6 @@ def test_reverb_farm_contracts():
         farm_.update(np.zeros((V, irs.shape[1] + 1), np.float32))
     with pytest.raises(ValueError):
         ReverbFarm(np.zeros(100, np.float32), 64, 100, device="cpu")  # 1-D irs
-    with pytest.raises(ValueError, match="tail_mac"):
-        ReverbFarm(irs, 64, IR_LEN, tail_mac="jnp", device="cpu")
     with pytest.raises(ValueError, match="power of two"):
         ReverbFarm(irs, 48, IR_LEN, device="cpu")
 
@@ -1049,18 +1070,13 @@ def test_reverb_farm_update_voice_short_ir_farm():
         _close(_voice(y, voice), e.process(x[t:, voice].reshape(-1)), ATOL, f"voice {voice}")
 
 
-def test_reverb_farm_head_dft_precision_names():
-    """The JAX package's precision names are accepted (every transform here
-    is float32 torch.fft, so the output is the same); bogus names raise."""
+def test_reverb_farm_bf16_tail_close_to_f32():
+    """A ReverbFarm with a bf16 tail tracks the f32 farm within bf16's ~3
+    digits (2e-2 of the output scale)."""
     farm_, irs, rng = _farm(seed=47)
-    fast = ReverbFarm(irs, 64, IR_LEN, dft_precision="bf16", tail_dft_precision="high",
-                      tail_dtype=torch.bfloat16, device="cpu")
+    fast = ReverbFarm(irs, 64, IR_LEN, tail_dtype=torch.bfloat16, device="cpu")
     x = rng.standard_normal((2 * farm_.period, V, B)).astype(np.float32)
     _scaled(fast.process(x), farm_.process(x), 2e-2, "bf16 tail vs f32")
-    with pytest.raises(ValueError, match="dft_precision"):
-        ReverbFarm(irs, 64, IR_LEN, dft_precision="bogus", device="cpu")
-    with pytest.raises(ValueError, match="tail_dft_precision"):
-        ReverbFarm(irs, 64, IR_LEN, tail_dft_precision="bogus", device="cpu")
 
 
 def test_reverb_farm_update_voices_packed_storage():

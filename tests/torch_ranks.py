@@ -142,13 +142,11 @@ def farm2_calls(rank: int, world: int, irs, b: int, cap: int, xs: list, bf16: bo
     cfg, state = farm2.farm2_init(irs, b, cap, tail_dtype=dtype)
     lv = voice_range(mesh, irs.shape[0])
     slab = farm2.voice_slab(state, lv)
-    step = cuda_farm_mac.phased_step_packed if bf16 else cuda_farm_mac.phased_step
     ys = []
     for call, x in enumerate(xs):
         if starts is not None:
             slab = starts[call][rank]
-        ys.append(_np(farm2.farm2_stream(cfg, slab, torch.from_numpy(x[:, lv.start:lv.stop]),
-                                         step)))
+        ys.append(_np(farm2.farm2_stream(cfg, slab, torch.from_numpy(x[:, lv.start:lv.stop]))))
     return {"voices": (lv.start, lv.stop), "y": ys, "state": _farm2_state(slab)}
 
 
