@@ -16,15 +16,18 @@ overlap are dead in the farm and stay untouched.
 
 ``suppress`` (a host bool tensor ``[V]``, so reading it never waits on the
 card): voices updated right before this call get no tail0 contribution in
-their first period.  :func:`suppress_rows` computes the masked remainder
-``w [V, n, B+1]`` in torch from the ring before the call writes it; it is
-subtracted from the first ``n`` rows of the block-axis convolution, before
-the inverse and the overlap-add.  The pass runs only when a voice is
-flagged, and is then the span ``fftconv.farm.suppress`` in a
-``torch.profiler`` trace.  ``delay``: optional ``(precalc [V, n B],
-output [V, n B], rows [q, V, n B])``, the big tail's pending precalc (added
-in period 0), its pending output (period 1) and this call's tail rows (row
-``j - 2`` in period ``j``), so the farm's delay line costs no extra pass.
+their first period.  The remainder ``w`` is computed in torch from the ring
+before the call writes it and subtracted from the first ``n`` rows of the
+block-axis convolution, before the inverse and the overlap-add.  The plain
+version takes :func:`suppress_rows` (``[V, n, B+1]``, all voices masked);
+the kernel takes :func:`suppress_rows_flagged`, bins-major ``[V, B+1, n]``
+with only the flagged voices' rows computed and zeros elsewhere, and no
+wait on the card.  The pass runs only when a voice is flagged, and is then
+the span ``fftconv.farm.suppress`` in a ``torch.profiler`` trace.
+``delay``: optional ``(precalc [V, n B], output [V, n B], rows [q, V, n
+B])``, the big tail's pending precalc (added in period 0), its pending
+output (period 1) and this call's tail rows (row ``j - 2`` in period
+``j``), so the farm's delay line costs no extra pass.
 
 :func:`heads_step` launches the kernel for CUDA tensors (three launches: the
 forward transforms; persistent thread blocks over tiles of adjacent (voice,
@@ -33,9 +36,10 @@ tile's rows loaded while the tile before it transforms; the inverse
 transforms; shaped by :func:`heads_plan`, a pure function the CPU tests
 cover) and takes the plain PyTorch version :func:`heads_step_plain` only
 for CPU tensors; it never falls back.  ``heads_step.launches`` counts its
-calls and ``heads_step.plan`` is the last launch's plan.  Neither caches
-the table's meta-spectra: the kernel transforms the raw table column by
-column, in registers.
+calls, ``heads_step.suppressed`` the voices whose remainder
+:func:`suppress_rows_flagged` computed, and ``heads_step.plan`` is the last
+launch's plan.  Neither caches the table's meta-spectra: the kernel
+transforms the raw table column by column, in registers.
 
 Limits of the kernel (:func:`heads_plan`): ``4 <= B <= 2048`` and at most
 1024 head segments; :func:`..parallel.farm2.farm2_init` checks them when it
@@ -157,6 +161,27 @@ def suppress_rows(st_h: uniform.UniformState, st_t0: uniform.UniformState,
     return w * suppress.to(w.device)[:, None, None]
 
 
+def suppress_rows_flagged(st_h: uniform.UniformState, st_t0: uniform.UniformState,
+                          suppress: torch.Tensor) -> torch.Tensor:
+    """:func:`suppress_rows` bins-major, ``w [V, B+1, n]``, on any device,
+    computed for the F voices flagged in the host bool ``suppress`` alone:
+    F is read on the host and the indices reach the card by a pinned
+    asynchronous copy, so the pass never waits on the card.  The F voices'
+    ring and tail0 table are gathered and their rows copied into a
+    zero-filled ``w``.  The ring is padded at the end to ``m = 2n``: the
+    reads before row 0 wrap into the pad, as :func:`suppress_rows`' leading
+    zeros give them."""
+    v, n, nb = st_h.segments.shape
+    dev = st_h.segments.device
+    idx = suppress.nonzero().flatten()
+    if dev.type == "cuda":
+        idx = idx.pin_memory()
+    idx = idx.to(dev, non_blocking=True)
+    ring = uniform.ring_window(st_h.segments.index_select(0, idx), st_h.current)
+    rows = causal_conv_time(ring, st_t0.segments_ir.index_select(0, idx), n, m=2 * n, row0=0)
+    return torch.zeros((v, nb, n), dtype=rows.dtype, device=dev).index_copy_(0, idx, rows.mT)
+
+
 def _state_out(st_h: uniform.UniformState, st_t0: uniform.UniformState, ext: torch.Tensor,
                outs: torch.Tensor, t: int, hist: torch.Tensor) -> None:
     """The exit state from ``ext`` (``hist``, ring window, new spectra) and
@@ -245,7 +270,8 @@ def heads_step(st_h: uniform.UniformState, st_t0: uniform.UniformState,
     w = None
     if bool(suppress.any()):  # from the ring before the kernel writes it
         with annotate("fftconv.farm.suppress"):
-            w = suppress_rows(st_h, st_t0, suppress).mT.contiguous()  # bins-major [V, B+1, n]
+            w = suppress_rows_flagged(st_h, st_t0, suppress)
+        heads_step.suppressed += int(suppress.sum())
     scratch = torch.empty((2, v, nb, t), dtype=c64, device=dev)
     y = torch.empty((t, v, b), device=dev)
     overlap = torch.empty((v, b), device=dev)
@@ -270,4 +296,5 @@ def heads_step(st_h: uniform.UniformState, st_t0: uniform.UniformState,
 
 
 heads_step.launches = 0
+heads_step.suppressed = 0
 heads_step.plan = None

@@ -755,18 +755,22 @@ def _b6_exit(st):
 ])
 def test_b6_kernel_matches_plain(dev, v, b, ir_len, periods):
     """B6 against heads_step_plain over calls of several periods, the state
-    carried, without and with the suppress pass (voice 0 flagged) and with
-    the big tail's delay line: the output and every exit field, to float32
-    rounding in another order; current the same."""
+    carried, without and with the suppress pass (voice 0 flagged, then every
+    voice, both through the gathered pass) and with the big tail's
+    delay line: the output and every exit field, to float32 rounding in
+    another order; current the same; the flagged voices counted."""
     rng = np.random.default_rng(170 + b)
     cfg, st = _b6_state(rng, v, b, ir_len, dev)
     n = cfg.head.seg_count
     plain = st.clone()
     before = cuda_farm_heads.heads_step.launches
-    calls = 0
-    for suppress in (False, True):
+    suppressed = cuda_farm_heads.heads_step.suppressed
+    calls = flags = 0
+    for flagged in ([], [0], list(range(v))):
         for k in periods:
-            st.suppress[0] = plain.suppress[0] = suppress
+            st.suppress.fill_(False)
+            st.suppress[flagged] = True
+            plain.suppress.copy_(st.suppress)
             x = torch.from_numpy(rng.standard_normal((k * n, v, b)).astype(np.float32)).to(dev)
             delay = tuple(torch.from_numpy((rng.standard_normal(shape) * 0.1)
                                            .astype(np.float32)).to(dev)
@@ -775,7 +779,8 @@ def test_b6_kernel_matches_plain(dev, v, b, ir_len, periods):
             yp = _b6_call(plain, x, delay, cuda_farm_heads.heads_step_plain)
             torch.cuda.synchronize()
             calls += 1
-            what = f"n={n} T={k * n} suppress={suppress}"
+            flags += len(flagged)
+            what = f"n={n} T={k * n} flagged={len(flagged)}"
             _close(y, yp, f"y {what}")
             for name, got, want in zip(("ring", "hist", "overlap", "pre head", "pre tail0"),
                                        _b6_exit(st), _b6_exit(plain)):
@@ -784,6 +789,32 @@ def test_b6_kernel_matches_plain(dev, v, b, ir_len, periods):
                     _close(got, want, f"{name} {what}")
             assert st.head.current == plain.head.current == st.tail0.current
     assert cuda_farm_heads.heads_step.launches == before + calls
+    assert cuda_farm_heads.heads_step.suppressed == suppressed + flags
+
+
+def test_b6_suppress_pass_makes_no_sync(dev):
+    """The suppress pass reads its flags on the host and sends the flagged
+    voices' indices by a pinned asynchronous copy, so a call with a subset
+    of the voices flagged, or every voice, never waits on the card (after a
+    first call that builds the kernel)."""
+    rng = np.random.default_rng(182)
+    cfg, st = _b6_state(rng, 4, 128, 4 * 48000, dev)
+    n = cfg.head.seg_count
+    x = torch.from_numpy(rng.standard_normal((n, 4, 128)).astype(np.float32)).to(dev)
+    step = cuda_farm_heads.heads_step
+    _b6_call(st, x, None, step)
+    before = step.suppressed
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        for flagged in ([1, 3], [0, 1, 2, 3]):
+            st.suppress.fill_(False)
+            st.suppress[flagged] = True
+            _b6_call(st, x, None, step)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert step.suppressed == before + 6
 
 
 @pytest.mark.parametrize("v,ir_len", [

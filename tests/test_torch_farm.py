@@ -650,6 +650,28 @@ def test_heads_step_on_cpu_is_the_plain_version():
         _close(added[period], want_d.view(2, p, B).transpose(0, 1), ATOL, f"period {period}")
 
 
+@pytest.mark.parametrize("flagged", [[3], [1, 4, 6], list(range(8))],
+                         ids=["one", "subset", "all"])
+def test_suppress_rows_flagged_matches_suppress_rows(flagged):
+    """The kernel's suppress pass, computed for the flagged voices alone,
+    against the plain version's masked remainder over all voices, bins-major:
+    a contiguous ``[V, B+1, n]``, the flagged voices' rows to float32
+    rounding, exact zeros elsewhere."""
+    rng = np.random.default_rng(87)
+    cfg, st = farm2.farm2_init(_irs(rng, 8), B, IR_LEN)
+    p = cfg.period
+    farm2.farm2_stream(cfg, st, torch.from_numpy(
+        rng.standard_normal((2 * p, 8, B)).astype(np.float32)))
+    st.head.current = st.tail0.current = 5
+    suppress = torch.zeros(8, dtype=torch.bool)
+    suppress[flagged] = True
+    w = cuda_farm_heads.suppress_rows_flagged(st.head, st.tail0, suppress)
+    want = cuda_farm_heads.suppress_rows(st.head, st.tail0, suppress).mT
+    assert w.shape == (8, B + 1, cfg.head.seg_count) and w.is_contiguous()
+    _scaled(w[flagged], want[flagged], 1e-6, "flagged rows")
+    assert not w[~suppress].any()
+
+
 @pytest.mark.parametrize("n,b,t,plan", [
     (16, 64, 16, (256, 224, 1, 16, 16)),
     (16, 64, 128, (256, 224, 1, 16, 16)),
