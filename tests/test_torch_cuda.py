@@ -665,41 +665,37 @@ def test_reverb_farm_on_card_matches_cpu(dev, tail_dtype):
     assert launches.launches == before + 4
 
 
-def test_bf16_farm_at_the_cells_shapes_matches_float64(dev):
-    """A bf16-tail farm at the shapes of the benchmark cell ``farm60bf16.dev2``
-    (block 128, 60 s responses: tail block 32768, 88 big-tail segments; 4
-    voices) against the float64 reference (``portbench/reference/conv.py``)
-    under the cell's ``out_err`` limit: the widest gap over the reference's
-    peak in each call.  Calls of 2 and 1 periods, ``update_voices`` of one
-    voice (compared exactly from three tail periods after it, as the cell's
-    check does), then a ``reset``; kernel B5p launches once a call."""
-    from portbench import harness
+def _farm_against_float64(dev, farm, irs, g, events, updated, limit):
+    """Stream ``events`` through ``farm`` (a number: a call of that many
+    periods; ``"update"``: ``update_voices`` of the voices ``updated`` to
+    fresh responses; ``"reset"``) and hold each call to the float64
+    reference (``portbench/reference/conv.py``) as the benchmark cells' check
+    does: the widest gap over the reference's peak in the call, under
+    ``limit``, an updated voice compared exactly from three tail periods
+    after its update (``update_extension``'s transient).  Kernels B5, B6 and
+    B7 launch once a call."""
     from portbench.reference.conv import conv_tail
 
-    limit = harness.limits_for("farm60bf16.dev2")["out_err"]
-    v, b, taps = 4, 128, 2_880_000
-    g = torch.Generator(device=dev).manual_seed(2101)
-    irs = torch.randn((v, taps), generator=g, device=dev) * 0.002
-    farm = ReverbFarm(irs, b, taps, tail_dtype=torch.bfloat16, device=dev)
-    assert (farm.tail_block, farm.cfg.tail.seg_count) == (32768, 88)
-    p, tb = farm.period, farm.tail_block
-    step = cuda_farm_mac.phased_step
+    v, taps = irs.shape
+    p, tb, b = farm.period, farm.tail_block, farm.block_size
+    counters = (cuda_farm_mac.phased_step, cuda_farm_heads.heads_step,
+                cuda_farm_tail.tail_forward, cuda_farm_tail.tail_inverse)
     dry = []                          # the blocks since the last reset
     since = torch.zeros(v, dtype=torch.long, device=dev)  # first exact sample
-    for event in (2, 1, "update", 2, 2, "reset", 2, 1):
+    for event in events:
         if event == "update":
-            irs[1] = torch.randn(taps, generator=g, device=dev) * 0.002
-            farm.update_voices([1], irs[1:2])
-            since[1] = len(dry) * b + 3 * tb  # update_extension's transient
+            irs[updated] = torch.randn((len(updated), taps), generator=g, device=dev) * 0.002
+            farm.update_voices(updated, irs[updated])
+            since[updated] = len(dry) * b + 3 * tb
             continue
         if event == "reset":
             farm.reset()
             dry, since = [], torch.zeros_like(since)
             continue
         x = torch.randn((event * p, v, b), generator=g, device=dev)
-        before = step.launches
+        before = [c.launches for c in counters]
         y = farm.process(x)
-        assert step.launches == before + 1
+        assert [c.launches for c in counters] == [n + 1 for n in before]
         s0 = len(dry) * b
         dry.extend(x)
         span = event * p * b
@@ -711,6 +707,43 @@ def test_bf16_farm_at_the_cells_shapes_matches_float64(dev):
         gap = float(torch.where(exact, (got - ref).abs(), 0.0).max())
         peak = float(torch.where(exact, ref.abs(), 0.0).max())
         assert torch.isfinite(got).all() and gap <= limit * peak, (event, gap / peak)
+
+
+def test_bf16_farm_at_the_cells_shapes_matches_float64(dev):
+    """A bf16-tail farm at the shapes of the benchmark cell ``farm60bf16.dev2``
+    (block 128, 60 s responses: tail block 32768, 88 big-tail segments; 4
+    voices) against the float64 reference under the cell's ``out_err``
+    limit: calls of 2 and 1 periods, ``update_voices`` of one voice, then a
+    ``reset`` (:func:`_farm_against_float64`)."""
+    from portbench import harness
+
+    v, b, taps = 4, 128, 2_880_000
+    g = torch.Generator(device=dev).manual_seed(2101)
+    irs = torch.randn((v, taps), generator=g, device=dev) * 0.002
+    farm = ReverbFarm(irs, b, taps, tail_dtype=torch.bfloat16, device=dev)
+    assert (farm.tail_block, farm.cfg.tail.seg_count) == (32768, 88)
+    _farm_against_float64(dev, farm, irs, g, (2, 1, "update", 2, 2, "reset", 2, 1), [1],
+                          harness.limits_for("farm60bf16.dev2")["out_err"])
+
+
+@pytest.mark.parametrize("tail_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_room_farm_at_the_cells_shapes_matches_float64(dev, tail_dtype):
+    """A farm at the shapes of the benchmark cell ``farm128k.dev8`` (block
+    64, 128,000-tap responses at 44.1 kHz: tail block 4096, n = 64, 32
+    big-tail segments; 8 voices) against the float64 reference under the
+    cell's ``out_err`` limit (f32) or the bf16 cell's (bf16): 8-period
+    calls, the cell's call, ``update_voices`` of two voices, then a
+    ``reset`` (:func:`_farm_against_float64`)."""
+    from portbench import harness
+
+    cell = "farm128k.dev8" if tail_dtype == torch.float32 else "farm60bf16.dev2"
+    v, b, taps = 8, 64, 128_000
+    g = torch.Generator(device=dev).manual_seed(2501)
+    irs = torch.randn((v, taps), generator=g, device=dev) * 0.002
+    farm = ReverbFarm(irs, b, taps, tail_dtype=tail_dtype, device=dev)
+    assert (farm.tail_block, farm.period, farm.cfg.tail.seg_count) == (4096, 64, 32)
+    _farm_against_float64(dev, farm, irs, g, (8, "update", 8, 8, "reset", 8, 8), [2, 5],
+                          harness.limits_for(cell)["out_err"])
 
 
 # ---- kernel B6: the reverb farm's head path --------------------------------------
